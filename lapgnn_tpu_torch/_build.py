@@ -15,7 +15,6 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Callable, List, Optional
 
@@ -34,7 +33,9 @@ class SharedLibrary:
     ``command`` is called at build time (not at import) and returns the
     compiler invocation without the output and source arguments, so a
     missing compiler only matters to a caller that needs the library.
-    ``bind`` sets ``argtypes``/``restype`` on the loaded library.
+    ``bind`` sets ``argtypes``/``restype`` on the loaded library.  ``load``
+    may be called from several threads at once; the compiler runs outside
+    the GIL, so libraries loaded from separate threads build in parallel.
     """
 
     def __init__(
@@ -50,66 +51,39 @@ class SharedLibrary:
         self._bind = bind
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
-        self._proc: Optional[subprocess.Popen] = None
-        self._tmp: Optional[Path] = None
-        self._out: Optional[Path] = None
-        self.build_seconds = 0.0
-        self._t0 = 0.0
+        self.path: Optional[Path] = None
 
-    def _output_path(self, cmd: List[str]) -> Path:
+    def _build(self) -> Path:
+        """Compile unless the library exists; return its path.  The
+        compiler's output (for ``nvcc -Xptxas -v``: registers, shared memory
+        and spills of each kernel) is kept beside the library as ``.log``."""
+        cmd = self._command()
         key = self.source.read_bytes() + "\0".join(cmd).encode()
         tag = hashlib.sha256(key).hexdigest()[:16]
-        return BUILD_DIR / self.subdir / f"lib{self.source.stem}_{tag}.so"
-
-    def start(self) -> None:
-        """Start the compiler in the background unless the library exists."""
-        if self._out is not None:
-            return
-        cmd = self._command()
-        out = self._output_path(cmd)
-        self._out = out
+        out = BUILD_DIR / self.subdir / f"lib{self.source.stem}_{tag}.so"
         if out.exists():
-            return
+            return out
         out.parent.mkdir(parents=True, exist_ok=True)
-        self._tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
-        self._t0 = time.perf_counter()
-        self._proc = subprocess.Popen(
-            cmd + ["-o", str(self._tmp), str(self.source)],
-            stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT,
-            text=True,
+        tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
+        res = subprocess.run(
+            cmd + ["-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-
-    def wait(self) -> Path:
-        """Finish the build started by ``start`` and return the library path.
-
-        The compiler's output (for ``nvcc -Xptxas -v``: registers, shared
-        memory and spills of each kernel) is kept beside the library as
-        ``.log``."""
-        self.start()
-        if self._proc is not None:
-            log, _ = self._proc.communicate()
-            self.build_seconds = time.perf_counter() - self._t0
-            rc = self._proc.returncode
-            self._proc = None
-            if rc != 0:
-                self._out = None
-                raise BuildError(
-                    f"building {self.source.name} failed (exit {rc}):\n{log}"
-                )
-            self._out.with_suffix(".log").write_text(log)
-            self._tmp.replace(self._out)
-        return self._out
-
-    def build_log(self) -> str:
-        path = self.wait().with_suffix(".log")
-        return path.read_text() if path.exists() else ""
+        if res.returncode != 0:
+            raise BuildError(
+                f"building {self.source.name} failed (exit {res.returncode}):\n{res.stdout}"
+            )
+        out.with_suffix(".log").write_text(res.stdout)
+        tmp.replace(out)
+        return out
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
             with self._lock:
                 if self._lib is None:
-                    lib = ctypes.CDLL(str(self.wait()))
+                    path = self._build()
+                    lib = ctypes.CDLL(str(path))
                     self._bind(lib)
+                    self.path = path
                     self._lib = lib
         return self._lib

@@ -4,8 +4,8 @@ Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` into a library with a plain C interface, loaded with
 ``ctypes``.  No ``--use_fast_math``: the feature kernel's entropy channel
 (``expf``/``logf``) is held to 2e-5 relative.  Nothing here runs at import;
-the build starts at a wrapper's first CUDA call, or when a caller
-(``chip_smoke.py``) starts every ``SharedLibrary`` at once.
+the build runs at a wrapper's first CUDA call, or when a caller
+(``chip_smoke.py``) loads every ``SharedLibrary`` at once from threads.
 """
 
 from __future__ import annotations

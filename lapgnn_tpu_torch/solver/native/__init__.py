@@ -19,7 +19,7 @@ import numpy as np
 
 from ..._build import BuildError, SharedLibrary
 
-__all__ = ["lapjv_native", "lapjv_seeded_native", "native_available", "NativeSolveError"]
+__all__ = ["lapjv_native", "lapjv_seeded_native", "NativeSolveError"]
 
 
 class NativeSolveError(RuntimeError):
@@ -56,14 +56,6 @@ def _lib() -> ctypes.CDLL:
         return LIBRARY.load()
     except (BuildError, OSError) as exc:
         raise NativeSolveError(f"native build failed: {exc}") from exc
-
-
-def native_available() -> bool:
-    try:
-        _lib()
-        return True
-    except NativeSolveError:
-        return False
 
 
 def _square(C: np.ndarray, what: str) -> np.ndarray:

@@ -1,10 +1,9 @@
 // lapx: dense Jonker-Volgenant assignment solver with warm-start support.
 //
-// A from-scratch C++ implementation providing the host-side oracle for the
-// lapgnn_tpu framework. Covers the same capability surface as the reference's
-// native layer (/root/reference/LAP/_lapjv_cpp/lapjv.cpp and
-// lapjv_seeded.cpp) but is written independently around a small DualState
-// struct and a plain-Dijkstra augmenting search.
+// The port's copy of the dense and warm-started solvers of
+// lapgnn_tpu/solver/native/lapx.cpp: the exact float64 host solve of the
+// hybrid path, written around a small DualState struct and a plain-Dijkstra
+// augmenting search.
 //
 // Exposed via extern "C" for ctypes:
 //   lapx_dense(n, C, x, y, u, v)                     - cold optimal solve
@@ -17,7 +16,6 @@
 #include <cmath>
 #include <cstdint>
 #include <limits>
-#include <queue>
 #include <utility>
 #include <vector>
 
@@ -359,433 +357,6 @@ int lapx_seeded(int n, const double* C, const double* u_seed,
   const int rc = augment_all(S, free_rows);
   if (rc != 0) return rc;
   export_solution(S, x, y, u_out, v_out);
-  return 0;
-}
-
-// Dual repair: exact optimality certificate for a candidate assignment,
-// without a re-solve.
-//
-// Given an assignment x claimed optimal for C (e.g. produced by a device
-// solve of a LOW-PRECISION copy of C — the bf16-transfer streamed posture)
-// and near-feasible column potentials v, drive v to the fixpoint
-//     v_k = min(v_k, min_i (C[i,k] + v[x_i] - C[i,x_i]))
-// — multi-source shortest paths on the column graph whose arcs leave each
-// column j through its matched row row_of_col[j].  With
-// u_i = C[i,x_i] - v[x_i] the pair (u, v) is tight on x by construction, so
-// reaching the fixpoint proves  min reduced cost >= 0  <=>  x is exactly
-// optimal for the TRUE matrix; if x is suboptimal the constraint graph has
-// a negative cycle and the relaxation cannot terminate — surfaced as a
-// budget blow-up (return -1), never as a false certificate.
-//
-// Heap-ordered label-correcting: the min-heap keys on (v[k] - v0[k]), so
-// the column with the LARGEST decrease from its starting potential (the
-// most-negative key) pops first — deepest-first settling, which drains the
-// dominant source of further relaxations before its downstream columns are
-// scanned.  Warm-started from duals within ~rounding of feasible, columns
-// rarely re-relax after popping, so total work is ~2 dense passes over C
-// plus a near-empty heap — vs the ~50-100 full Bellman-Ford rounds a cold
-// fixpoint needs at n=2048.  (Any pop order converges; the order only
-// affects the constant.)
-//
-// Capability analog in the reference: dual_computation.py:13-74 rebuilds
-// duals from an optimal matching by relaxing all n^2 difference constraints
-// in Python (cold start, generation-time only).  This is the warm-started
-// native equivalent serving the streamed bf16 certificate
-// (lapgnn_tpu/pipeline.py::_certify_and_polish).
-//
-// Returns 0 on fixpoint (v updated in place, *min_red_out = exact f64
-// minimum reduced cost over all n^2 edges), -1 if the relaxation budget was
-// exhausted (x very likely suboptimal; caller should re-solve), -2 on bad
-// arguments (including x not being a permutation).
-int lapx_repair_duals(int n, const double* C, const int32_t* x, double* v,
-                      long long max_scans, double* min_red_out) {
-  if (n <= 0 || !C || !x || !v || !min_red_out) return -2;
-  vector<int> row_of_col(n, -1);
-  for (int i = 0; i < n; ++i) {
-    const int j = x[i];
-    if (j < 0 || j >= n || row_of_col[j] >= 0) return -2;
-    row_of_col[j] = i;
-  }
-  // Default budget: 64n column scans.  Warm bf16-rounded duals typically
-  // need ~2n; the round-4 bench measured instances where 16n bailed on
-  // EXACTLY OPTIMAL assignments (forcing a ~170 ms polish for nothing),
-  // while 64n repaired every one in ~20 ms.  The budget's only job is to
-  // bound the negative-cycle blowup of a genuinely suboptimal assignment:
-  // 64n scans * O(n) work is ~0.3 s at n=2048 — still far below the
-  // repeated-cold-solve cost the -1 return then avoids.
-  if (max_scans <= 0) max_scans = 64LL * n;
-  const long long max_pushes = 2 * max_scans;
-
-  vector<double> v0(v, v + n);  // heap keys are decreases vs the start
-  using Item = std::pair<double, int>;
-  std::priority_queue<Item, vector<Item>, std::greater<Item>> heap;
-  long long scans = 0, pushes = 0;
-
-  // Initial full relaxation (row-major friendly): one pass over C seeds the
-  // heap with every column the starting potentials fail to dominate.
-  for (int i = 0; i < n; ++i) {
-    const double* row = C + (size_t)i * n;
-    const double w = v[x[i]] - row[x[i]];
-    for (int k = 0; k < n; ++k) {
-      const double cand = row[k] + w;
-      if (cand < v[k]) v[k] = cand;
-    }
-  }
-  scans += n;
-  for (int k = 0; k < n; ++k) {
-    if (v[k] < v0[k]) {
-      heap.emplace(v[k] - v0[k], k);
-      ++pushes;
-    }
-  }
-
-  while (!heap.empty()) {
-    const Item top = heap.top();
-    heap.pop();
-    const int j = top.second;
-    if (top.first != v[j] - v0[j]) continue;  // stale entry (lazy deletion)
-    if (++scans > max_scans) return -1;
-    const int i = row_of_col[j];
-    const double* row = C + (size_t)i * n;
-    const double w = v[j] - row[j];
-    for (int k = 0; k < n; ++k) {
-      const double cand = row[k] + w;
-      if (cand < v[k]) {
-        v[k] = cand;
-        if (++pushes > max_pushes) return -1;
-        heap.emplace(v[k] - v0[k], k);
-      }
-    }
-  }
-
-  // Certificate pass: exact f64 min reduced cost with u_i = C[i,x_i]-v[x_i].
-  // NaN-hostile: any NaN reduced cost must surface as a failed certificate
-  // (NaN), never be skipped by a comparison that is false on NaN.
-  double min_red = INF;
-  bool has_nan = false;
-  for (int i = 0; i < n; ++i) {
-    const double* row = C + (size_t)i * n;
-    const double u_i = row[x[i]] - v[x[i]];
-    for (int k = 0; k < n; ++k) {
-      const double r = row[k] - u_i - v[k];
-      if (r != r) has_nan = true;
-      else if (r < min_red) min_red = r;
-    }
-  }
-  *min_red_out = has_nan ? std::numeric_limits<double>::quiet_NaN() : min_red;
-  return 0;
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// Sparse (CSR) solver — capability equivalent of the reference's LAPMOD
-// (/root/reference/LAP/_lapjv_cpp/lapmod.cpp). Costs are given row-major CSR;
-// absent entries are forbidden edges. Returns -3 if no perfect matching on
-// the allowed edges exists.
-// ---------------------------------------------------------------------------
-
-namespace {
-
-struct SparseProblem {
-  int n;
-  const int32_t* row_ptr;  // n+1
-  const int32_t* col_idx;  // nnz
-  const double* val;       // nnz
-};
-
-// Sparse column reduction: every column's potential is its cheapest incident
-// edge; rows uniquely claimed keep their edge.
-void sparse_column_reduce(const SparseProblem& P, vector<int>& x, vector<int>& y,
-                          vector<double>& v) {
-  const int n = P.n;
-  vector<int> best_row(n, -1);
-  for (int j = 0; j < n; ++j) v[j] = INF;
-  for (int i = 0; i < n; ++i) {
-    for (int32_t k = P.row_ptr[i]; k < P.row_ptr[i + 1]; ++k) {
-      const int j = P.col_idx[k];
-      if (P.val[k] < v[j]) {
-        v[j] = P.val[k];
-        best_row[j] = i;
-      }
-    }
-  }
-  for (int j = n - 1; j >= 0; --j) {
-    const int i = best_row[j];
-    if (i >= 0 && x[i] < 0) {
-      x[i] = j;
-      y[j] = i;
-    }
-  }
-  // Columns no row can reach keep v = 0 so they do not poison the duals.
-  for (int j = 0; j < n; ++j)
-    if (v[j] == INF) v[j] = 0.0;
-}
-
-// Sparse augmenting row reduction (capability of _carr_sparse,
-// /root/reference/LAP/_lapjv_cpp/lapmod.cpp:80-149; independent worklist
-// design).  Each free row takes its cheapest column outright, lowering that
-// column's potential by the gap to its second-cheapest so the kicked owner
-// re-enters the worklist with a usable alternative.  The total number of
-// takeovers is bounded (4n) so degenerate cycles — the reference's historic
-// ARR infinite-loop bug class — simply hand the leftovers to the exact
-// shortest-path phase instead of hanging.
-void sparse_arr(const SparseProblem& P, vector<int>& x, vector<int>& y,
-                vector<double>& v) {
-  const int n = P.n;
-  vector<int> work;
-  work.reserve(n);
-  for (int i = 0; i < n; ++i)
-    if (x[i] < 0) work.push_back(i);
-
-  int budget = 4 * n;
-  while (!work.empty() && budget-- > 0) {
-    const int i = work.back();
-    work.pop_back();
-    double min1 = INF, min2 = INF;
-    int j1 = -1;
-    for (int32_t k = P.row_ptr[i]; k < P.row_ptr[i + 1]; ++k) {
-      const int j = P.col_idx[k];
-      const double r = P.val[k] - v[j];
-      if (r < min1) {
-        min2 = min1;
-        min1 = r;
-        j1 = j;
-      } else if (r < min2) {
-        min2 = r;
-      }
-    }
-    if (j1 < 0) continue;  // row has no edges; path phase will report -3
-    if (min2 < INF && min2 > min1) v[j1] -= (min2 - min1);
-    const int prev = y[j1];
-    if (prev >= 0) {
-      // Only evict when strictly profitable for this row (min1 < min2);
-      // otherwise leave the row free for the exact phase.
-      if (min2 <= min1) continue;
-      x[prev] = -1;
-      work.push_back(prev);
-    }
-    x[i] = j1;
-    y[j1] = i;
-  }
-}
-
-// Find-path strategy 1: dense scans — the argmin pass touches every column.
-// Wins when rows are dense (most columns get a finite distance anyway).
-// Capability of find_path_sparse_1 (lapmod.cpp:164-254).
-int sparse_path_scan(const SparseProblem& P, int free_row, vector<int>& x,
-                     vector<int>& y, vector<double>& v, vector<double>& d,
-                     vector<int>& pred, vector<char>& settled) {
-  const int n = P.n;
-  std::fill(d.begin(), d.end(), INF);
-  std::fill(pred.begin(), pred.end(), free_row);
-  std::fill(settled.begin(), settled.end(), 0);
-
-  for (int32_t k = P.row_ptr[free_row]; k < P.row_ptr[free_row + 1]; ++k) {
-    const int j = P.col_idx[k];
-    d[j] = P.val[k] - v[j];
-  }
-
-  int sink = -1;
-  double sink_dist = 0.0;
-  for (int iter = 0; iter <= n; ++iter) {
-    int jmin = -1;
-    double dmin = INF;
-    for (int j = 0; j < n; ++j) {
-      if (!settled[j] && d[j] < dmin) {
-        dmin = d[j];
-        jmin = j;
-      }
-    }
-    if (jmin < 0) return -3;  // no reachable free column: infeasible
-
-    const int owner = y[jmin];
-    if (owner < 0) {
-      sink = jmin;
-      sink_dist = dmin;
-      break;
-    }
-    settled[jmin] = 1;
-    // Slack of the owner at its matched column jmin.
-    double owner_match_slack = INF;
-    for (int32_t k = P.row_ptr[owner]; k < P.row_ptr[owner + 1]; ++k) {
-      if (P.col_idx[k] == jmin) {
-        owner_match_slack = P.val[k] - v[jmin];
-        break;
-      }
-    }
-    const double base = dmin - owner_match_slack;
-    for (int32_t k = P.row_ptr[owner]; k < P.row_ptr[owner + 1]; ++k) {
-      const int j = P.col_idx[k];
-      if (settled[j]) continue;
-      const double cand = base + (P.val[k] - v[j]);
-      if (cand < d[j]) {
-        d[j] = cand;
-        pred[j] = owner;
-      }
-    }
-  }
-  if (sink < 0) return -3;
-
-  for (int j = 0; j < n; ++j)
-    if (settled[j]) v[j] += d[j] - sink_dist;
-
-  int j = sink;
-  for (int guard = 0; guard <= n; ++guard) {
-    const int i = pred[j];
-    y[j] = i;
-    std::swap(x[i], j);
-    if (i == free_row) return 0;
-  }
-  return -1;
-}
-
-// Find-path strategy 2: frontier list — only columns that have received a
-// finite tentative distance are ever scanned, so per-pop cost tracks the
-// reachable set, not n.  Wins on very sparse rows.  Capability of
-// find_path_sparse_2 (lapmod.cpp:258-381); independent design (lazy-deleted
-// flat frontier instead of the reference's ready/todo index juggling).
-int sparse_path_frontier(const SparseProblem& P, int free_row, vector<int>& x,
-                         vector<int>& y, vector<double>& v, vector<double>& d,
-                         vector<int>& pred, vector<char>& settled,
-                         vector<int>& frontier, vector<char>& in_frontier) {
-  const int n = P.n;
-  std::fill(d.begin(), d.end(), INF);
-  std::fill(pred.begin(), pred.end(), free_row);
-  std::fill(settled.begin(), settled.end(), 0);
-  std::fill(in_frontier.begin(), in_frontier.end(), 0);
-  frontier.clear();
-
-  for (int32_t k = P.row_ptr[free_row]; k < P.row_ptr[free_row + 1]; ++k) {
-    const int j = P.col_idx[k];
-    d[j] = P.val[k] - v[j];
-    if (!in_frontier[j]) {
-      in_frontier[j] = 1;
-      frontier.push_back(j);
-    }
-  }
-
-  int sink = -1;
-  double sink_dist = 0.0;
-  for (int iter = 0; iter <= n; ++iter) {
-    int jmin = -1;
-    double dmin = INF;
-    size_t w = 0;  // compact out settled entries while scanning
-    for (size_t r = 0; r < frontier.size(); ++r) {
-      const int j = frontier[r];
-      if (settled[j]) continue;
-      frontier[w++] = j;
-      if (d[j] < dmin) {
-        dmin = d[j];
-        jmin = j;
-      }
-    }
-    frontier.resize(w);
-    if (jmin < 0) return -3;
-
-    const int owner = y[jmin];
-    if (owner < 0) {
-      sink = jmin;
-      sink_dist = dmin;
-      break;
-    }
-    settled[jmin] = 1;
-    double owner_match_slack = INF;
-    for (int32_t k = P.row_ptr[owner]; k < P.row_ptr[owner + 1]; ++k) {
-      if (P.col_idx[k] == jmin) {
-        owner_match_slack = P.val[k] - v[jmin];
-        break;
-      }
-    }
-    const double base = dmin - owner_match_slack;
-    for (int32_t k = P.row_ptr[owner]; k < P.row_ptr[owner + 1]; ++k) {
-      const int j = P.col_idx[k];
-      if (settled[j]) continue;
-      const double cand = base + (P.val[k] - v[j]);
-      if (cand < d[j]) {
-        d[j] = cand;
-        pred[j] = owner;
-        if (!in_frontier[j]) {
-          in_frontier[j] = 1;
-          frontier.push_back(j);
-        }
-      }
-    }
-  }
-  if (sink < 0) return -3;
-
-  // Settled columns all live in (or passed through) the frontier: the dual
-  // update only needs to touch reachable columns.
-  for (int j = 0; j < n; ++j)
-    if (settled[j]) v[j] += d[j] - sink_dist;
-
-  int j = sink;
-  for (int guard = 0; guard <= n; ++guard) {
-    const int i = pred[j];
-    y[j] = i;
-    std::swap(x[i], j);
-    if (i == free_row) return 0;
-  }
-  return -1;
-}
-
-}  // namespace
-
-extern "C" {
-
-// fp_version: 1 = dense scans, 2 = frontier list, 3 = dynamic (pick by the
-// 25% matrix-density threshold, the reference's get_better_find_path rule,
-// lapmod.cpp:559-585).
-int lapx_sparse(int n, const int32_t* row_ptr, const int32_t* col_idx,
-                const double* val, int32_t* x_out, int32_t* y_out,
-                double* u_out, double* v_out, int fp_version) {
-  if (n <= 0 || !row_ptr || !col_idx || !val || !x_out || !y_out) return -2;
-  SparseProblem P{n, row_ptr, col_idx, val};
-  vector<int> x(n, -1), y(n, -1);
-  vector<double> v(n, 0.0);
-
-  sparse_column_reduce(P, x, y, v);
-  sparse_arr(P, x, y, v);
-
-  int fp = fp_version;
-  if (fp != 1 && fp != 2) {
-    const double density =
-        static_cast<double>(row_ptr[n]) / (static_cast<double>(n) * n);
-    fp = density > 0.25 ? 1 : 2;
-  }
-
-  vector<double> d(n);
-  vector<int> pred(n);
-  vector<char> settled(n);
-  vector<int> frontier;
-  vector<char> in_frontier(n);
-  frontier.reserve(n);
-  for (int i = 0; i < n; ++i) {
-    if (x[i] >= 0) continue;
-    const int rc =
-        fp == 1 ? sparse_path_scan(P, i, x, y, v, d, pred, settled)
-                : sparse_path_frontier(P, i, x, y, v, d, pred, settled,
-                                       frontier, in_frontier);
-    if (rc != 0) return rc;
-  }
-
-  for (int i = 0; i < n; ++i) {
-    x_out[i] = x[i];
-    if (u_out) {
-      double u = 0.0;
-      for (int32_t k = row_ptr[i]; k < row_ptr[i + 1]; ++k) {
-        if (col_idx[k] == x[i]) {
-          u = val[k] - v[col_idx[k]];
-          break;
-        }
-      }
-      u_out[i] = u;
-    }
-  }
-  for (int j = 0; j < n; ++j) {
-    y_out[j] = y[j];
-    if (v_out) v_out[j] = v[j];
-  }
   return 0;
 }
 

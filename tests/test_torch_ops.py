@@ -352,3 +352,20 @@ def test_kernel_wrappers_count_and_validate_on_card(cuda):
         col_min(C.t())
     with pytest.raises(ValueError):
         min_trick(C, torch.zeros(63, device=cuda))
+
+
+# ---------------------------------------------------------------- the port's copy of the families
+
+
+@pytest.mark.parametrize("fam", sorted(FAMILIES))
+@pytest.mark.parametrize("n", [17, 64])
+def test_port_families_equal_jax_families(fam, n):
+    """The port's FAMILIES registry draws the same matrices from the same
+    numpy seed as the JAX package's, bit for bit."""
+    from lapgnn_tpu_torch.data.generators import FAMILIES as TFAMILIES
+
+    assert sorted(TFAMILIES) == sorted(FAMILIES)
+    want = FAMILIES[fam](n, np.random.default_rng(n))
+    got = TFAMILIES[fam](n, np.random.default_rng(n))
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)

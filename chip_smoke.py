@@ -8,21 +8,35 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      (one ``nvcc`` per ``csrc/*.cu``) and the native host solver (``g++``),
      built together from the checkout into ``build/``.
   2. Kernels against their plain PyTorch versions at n = 1000, 2048 and 8192
-     on a (uniform, tie) batch of two: K1 column min and K2 min-trick must
-     match bit for bit, K3 row-feature statistics within rtol 2e-5 / atol 2e-6.
-  3. End to end: ``WarmStartPipeline(mode="hybrid", seed_mode="auto",
+     on a (uniform, tie) batch of two: K1 column min, K2 min-trick and K4
+     two-min must match bit for bit (K4 also on rows with +-inf and NaN at
+     n = 1000), K3 row-feature statistics within rtol 2e-5 / atol 2e-6.
+  3. Hybrid end to end: ``WarmStartPipeline(mode="hybrid", seed_mode="auto",
      normalize_costs=True)`` with ``artifacts/one_gnn_default`` (OneGNN,
      hidden 192, 4 layers, top-k 16) solves one instance of each of four
-     families at n = 2048 with ``certify=True``.  Each optimal cost must equal
-     SciPy's (float64, 1e-12 relative) and pass the port's certificate, and
-     the kernel launch counters, zeroed just before, must show that the path
-     ran K3 and K1 at least once and K2 at least twice per instance.
-  4. Times: the end-to-end predict and host-solve time per instance, the
-     predict's stages and the device's busy share under torch.profiler, and
-     each kernel and its plain version at n = 2048 and 8192 (median of
-     CUDA-event timings after warm-up, L2 flushed before each launch) beside
-     its bound: the larger of the bytes it must move over the HBM rate and
-     the float32 operations it must do over the card's float32 rate.
+     families at n = 2048 with ``certify=True``; each optimal cost must equal
+     SciPy's (float64, 1e-12 relative) and the launch counters, zeroed just
+     before, must show K3 and K1 at least once and K2 at least twice per
+     instance.  Then the predict's stages and the device's busy share.
+  4. Device end to end: the default ``WarmStartPipeline(mode="device", ...)``
+     solves the same four families at n = 2048 in float32 on the card and
+     certifies each against the float64 matrix on the host; each cost must
+     equal SciPy's (1e-12 relative), be certified and not routed to the host,
+     and the counters must show K4 in every instance besides K1-K3.  Per
+     instance: the certificate's route (raw, repair or polish), predict,
+     device-solve and certify times, and the solver's loop and sync counts.
+  5. The port's device solver on the card and on the CPU from the same
+     float32 input and seeds at n = 512 (uniform, tie): equal assignments,
+     bit-equal duals.
+  6. Where one device solve's time goes (uniform): its stages, and the
+     device's idle share and K4's time under torch.profiler.
+  7. Times: each kernel and its plain version at n = 2048 and 8192 beside
+     its bound (the larger of the bytes it must move over the HBM rate and
+     the float32 operations over the card's float32 rate).  Median of
+     CUDA-event timings, all reps queued behind a spin kernel so the host's
+     launch latency stays out of the event windows, L2 flushed before each
+     launch.  At n = 2048 the kernels are also timed with a loop that
+     synchronises before every rep, for comparison.
 
 Output: a JSON line per phase, then the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -47,8 +61,17 @@ F32_OPS_PER_S = 67e12
 
 K3_RTOL, K3_ATOL = 2e-5, 2e-6
 N_E2E = 2048
+N_DEVICE_VS_CPU = 512
 FAMILIES_E2E = ("uniform", "noisy_linear", "sparse", "tie")
 COMPARE_SIZES = (1000, 2048, 8192)
+# The device path's certificate tolerance.  The default 1e-6 admits a
+# per-row dual violation of 1e-6, a gap of up to n * 1e-6, which on the tie
+# family (optimum ~1e-5, 1e-6 jitter) is larger than the optimum; at 1e-12
+# only the float64 dual repair or the host polish can certify, and both are
+# exact.
+CERTIFY_TOL = 1e-12
+# Spin before a queue of timed reps: ~25-35 ms at the H100's clocks.
+SPIN_CYCLES = 50_000_000
 
 KERNELS = {
     "col_min": {
@@ -65,6 +88,11 @@ KERNELS = {
         "route": "cuda",
         "source": "lapgnn_tpu_torch/csrc/features.cu",
         "replaces": "lapgnn_tpu/ops/pallas/features.py:193",
+    },
+    "two_min": {
+        "route": "cuda",
+        "source": "lapgnn_tpu_torch/csrc/twomin.cu",
+        "replaces": "lapgnn_tpu/ops/pallas/twomin.py:40",
     },
 }
 
@@ -88,12 +116,16 @@ def _bound_ms(name: str, B: int, n: int, m: int):
     subtract and a compare.  K3's float32 work (moments, entropy) is a few
     operations per element, far below its bytes time; its exact selections
     are integer compares whose count depends on the selection algorithm and
-    which the rate table does not cover, so K3 is held to the bytes bound."""
+    which the rate table does not cover, so K3 is held to the bytes bound.
+    K4 reads C and v and writes min1, min2 and the int32 argmin; it does a
+    subtract and two compares per element."""
     f32 = 4
     if name == "col_min":
         nbytes, ops = B * n * m * f32 + B * m * f32, B * n * m
     elif name == "min_trick":
         nbytes, ops = B * n * m * f32 + B * n * f32 + B * m * f32, 2 * B * n * m
+    elif name == "two_min":
+        nbytes, ops = B * n * m * f32 + B * m * f32 + 3 * B * n * f32, 3 * B * n * m
     else:
         nbytes, ops = B * n * m * f32 + B * n * 13 * f32, 0
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -137,11 +169,31 @@ def _batch(torch, n, seed, fams=("uniform", "tie")):
     return torch.from_numpy(C).cuda()
 
 
+def _check_two_min(torch, got, want, what):
+    """K4 against its plain version: argmin equal, min1 and min2 bit-equal
+    (NaN where the plain version has NaN).  Returns the largest absolute
+    difference over the finite entries."""
+    if not torch.equal(got[2], want[2]):
+        raise AssertionError(f"two_min argmin differs from its plain version ({what})")
+    err = 0.0
+    for g, w in zip(got[:2], want[:2]):
+        nan = torch.isnan(w)
+        if not torch.equal(torch.isnan(g), nan):
+            raise AssertionError(f"two_min NaN pattern differs ({what})")
+        if not torch.equal(g[~nan].view(torch.int32), w[~nan].view(torch.int32)):
+            raise AssertionError(f"two_min values differ from its plain version ({what})")
+        fin = torch.isfinite(w)
+        if fin.any():
+            err = max(err, float((g[fin] - w[fin]).abs().max()))
+    return err
+
+
 def phase_compare(torch, seed):
     from lapgnn_tpu_torch.ops import features
-    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats
+    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
     from lapgnn_tpu_torch.ops.cuda.features import row_features_stats_plain
+    from lapgnn_tpu_torch.ops.cuda.twomin import two_min_plain
 
     errs = {name: 0.0 for name in KERNELS}
     detail = []
@@ -165,6 +217,17 @@ def phase_compare(torch, seed):
         errs["col_min"] = max(errs["col_min"], float((k1 - p1).abs().max()))
         errs["min_trick"] = max(errs["min_trick"], float((k2 - p2).abs().max()))
         errs["row_features_stats"] = max(errs["row_features_stats"], e3)
+        v = torch.randn((2, n), generator=g, device="cuda") * 0.3
+        errs["two_min"] = max(errs["two_min"], _check_two_min(
+            torch, two_min(C, v), two_min_plain(C, v), f"n={n}"))
+        if n == COMPARE_SIZES[0]:
+            # +-inf in one row, NaN in two others (one NaN, and two NaNs)
+            S = C.clone()
+            S[0, 3, 5] = float("inf")
+            S[0, 4, 2] = S[0, 4, 9] = float("-inf")
+            S[1, 7, 11] = float("nan")
+            S[1, 8, 1] = S[1, 8, n // 2] = float("nan")
+            _check_two_min(torch, two_min(S, v), two_min_plain(S, v), "inf/NaN rows")
         rel = ((k3 - sort_path).abs() / (sort_path.abs() + K3_ATOL / K3_RTOL)).amax((0, 1))
         detail.append({"n": n, "k3_max_abs_err": e3,
                        "k3_vs_sort_path_max_rel_per_channel": [float(x) for x in rel]})
@@ -172,41 +235,69 @@ def phase_compare(torch, seed):
     return errs
 
 
-def phase_e2e(torch, seed):
+CHECKPOINT = Path(__file__).resolve().parent / "artifacts" / "one_gnn_default"
+
+
+def _e2e_costs(seed):
+    """One float32 instance of each family at n = N_E2E, drawn from ``seed``."""
     import numpy as np
-    import scipy.optimize
 
     from lapgnn_tpu_torch.data.generators import FAMILIES
-    from lapgnn_tpu_torch.ops.cuda import WRAPPERS, col_min, min_trick, row_features_stats
+
+    rng = np.random.default_rng(seed)
+    return {f: FAMILIES[f](N_E2E, rng).astype(np.float32) for f in FAMILIES_E2E}
+
+
+def _scipy_opt(C64) -> float:
+    import scipy.optimize
+
+    r, c = scipy.optimize.linear_sum_assignment(C64)
+    return float(C64[r, c].sum())
+
+
+def _zero_launches():
+    from lapgnn_tpu_torch.ops.cuda import WRAPPERS
+
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def _read_launches():
+    from lapgnn_tpu_torch.ops.cuda import WRAPPERS
+
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def phase_e2e(torch, seed):
+    import numpy as np
+
+    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats
     from lapgnn_tpu_torch.pipeline import WarmStartPipeline
     from lapgnn_tpu_torch.solver.native import lapjv_native, lapjv_seeded_native
     from lapgnn_tpu_torch.solver.verification import certify_assignment
     from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint
 
-    params, meta, _ = load_checkpoint(Path(__file__).resolve().parent / "artifacts" / "one_gnn_default")
+    params, meta, _ = load_checkpoint(CHECKPOINT)
     pipe = WarmStartPipeline(
         build_model_from_meta(meta), params, mode="hybrid", seed_mode="auto",
         normalize_costs=True,
     )
     n = N_E2E
-    rng = np.random.default_rng(seed)
-    costs = {f: FAMILIES[f](n, rng).astype(np.float32) for f in FAMILIES_E2E}
+    costs = _e2e_costs(seed)
 
-    for w in WRAPPERS:
-        w.launches = 0
+    _zero_launches()
     results = {f: pipe.solve(C, certify=True) for f, C in costs.items()}
     torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in WRAPPERS}
+    launches = _read_launches()
 
     per = len(costs)
     if row_features_stats.launches < per or col_min.launches < per or min_trick.launches < 2 * per:
-        raise AssertionError(f"the main path skipped a kernel: launches {launches}")
+        raise AssertionError(f"the hybrid path skipped a kernel: launches {launches}")
     report = {}
     for f, C in costs.items():
         out = results[f]
         C64 = C.astype(np.float64)
-        r, c = scipy.optimize.linear_sum_assignment(C64)
-        opt = float(C64[r, c].sum())
+        opt = _scipy_opt(C64)
         got = float(out["cost"][0])
         if not abs(got - opt) <= 1e-12 * max(1.0, abs(opt)):
             raise AssertionError(f"{f}: cost {got!r} != SciPy {opt!r}")
@@ -236,36 +327,202 @@ def phase_e2e(torch, seed):
                      "predict_ms_median": statistics.median(predict_ms),
                      "host_solve_ms": host_ms}
     _emit({"phase": "e2e", "n": n, "launches": launches, "instances": report})
-    return launches, pipe, costs["uniform"]
+    return pipe, costs["uniform"]
 
 
-def _time_ms(torch, fn, reps, flush):
-    """Median CUDA-event time of ``fn`` with L2 flushed before each launch."""
-    for _ in range(3):
-        fn()
+def _ms_host(torch, fn, reps):
+    """Median host-clock ms of ``fn`` over work that ends in a synchronize."""
     times = []
     for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
+def phase_device_e2e(torch, seed):
+    """The default serving call on the card: predict, the float32 seeded
+    solve on the device, the float64 certificate on the host."""
+    import numpy as np
+
+    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
+    from lapgnn_tpu_torch.pipeline import WarmStartPipeline
+    from lapgnn_tpu_torch.solver.jv import SolveStats
+    from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
+    from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint
+
+    params, meta, _ = load_checkpoint(CHECKPOINT)
+    pipe = WarmStartPipeline(
+        build_model_from_meta(meta), params, mode="device", seed_mode="auto",
+        normalize_costs=True, certify_tol=CERTIFY_TOL,
+    )
+    if pipe.mode != "device" or pipe.device.type != "cuda":
+        raise AssertionError("the default pipeline is not the device mode on the card")
+    n = N_E2E
+    costs = _e2e_costs(seed)
+
+    _zero_launches()
+    results, stats, k4_per_instance = {}, {}, {}
+    for f, C in costs.items():
+        before = two_min.launches
+        results[f] = pipe.solve(C, certify=True)
+        stats[f] = pipe.last_solve_stats[0]
+        k4_per_instance[f] = two_min.launches - before
+    torch.cuda.synchronize()
+    launches = _read_launches()
+
+    per = len(costs)
+    if (row_features_stats.launches < per or col_min.launches < per
+            or min_trick.launches < 2 * per or min(k4_per_instance.values()) < 1):
+        raise AssertionError(
+            f"the device path skipped a kernel: launches {launches}, "
+            f"K4 per instance {k4_per_instance}"
+        )
+    report = {}
+    for f, C in costs.items():
+        out = results[f]
+        C64 = C.astype(np.float64)
+        opt = _scipy_opt(C64)
+        got = float(out["cost"][0])
+        if not abs(got - opt) <= 1e-12 * max(1.0, abs(opt)):
+            raise AssertionError(f"{f}: device cost {got!r} != SciPy {opt!r}")
+        if not out["certified"].all():
+            raise AssertionError(f"{f}: not certified (gap bound {out['gap_bound']})")
+        if "routed_host" in out:
+            raise AssertionError(f"{f}: routed to the host")
+        how = ("polish" if out["polished"][0] else "repair" if out["repaired"][0] else "raw")
+
+        # times per instance, outside the counted run
+        Ct = torch.from_numpy(C).cuda()[None]
+        predict_ms = _ms_host(torch, lambda: pipe.predict_duals(Ct), 3)
+        u, v = pipe.predict_duals(Ct)
+        with torch.inference_mode():
+            solve_ms = _ms_host(torch, lambda: lapjv_seeded_single(
+                Ct[0], u[0], v[0], eps=pipe.eps, gate=pipe.gate, stats=SolveStats()), 2)
+        packed = pipe._solve_device(Ct)
+        again = pipe._unpack(packed, n)
+        t0 = time.perf_counter()
+        pipe._certify_and_polish(C64[None], packed, again)
+        certify_ms = (time.perf_counter() - t0) * 1e3
+        st = stats[f]
+        report[f] = {
+            "cost": got, "scipy_cost": opt, "certificate": how,
+            "used_fallback": bool(out["used_fallback"][0]),
+            "repaired": bool(out["repaired"][0]), "polished": bool(out["polished"][0]),
+            "polish_ms": float(out["polish_ms"][0]),
+            "predict_ms_median": predict_ms, "device_solve_ms_median": solve_ms,
+            "certify_ms": certify_ms, "k4_launches": k4_per_instance[f],
+            "loops": {"greedy_rounds": st.greedy_rounds, "arr_rounds": st.arr_rounds,
+                      "aug_rounds": st.aug_rounds, "sweeps": st.sweeps,
+                      "flip_steps": st.flip_steps, "host_syncs": st.host_syncs,
+                      "flip_ms": st.flip_ms},
+        }
+    _emit({"phase": "device_e2e", "n": n, "certify_tol": CERTIFY_TOL,
+           "launches": launches, "instances": report})
+    return launches, pipe, costs
+
+
+def phase_device_vs_cpu(torch, pipe, seed):
+    """The port's seeded solver on the card and on the CPU from the same
+    float32 matrix and seeds (the pipeline's, min-trick projected)."""
+    import numpy as np
+
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+    from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
+
+    n = N_DEVICE_VS_CPU
+    rng = np.random.default_rng(seed + 5)
+    report = {}
+    for f in ("uniform", "tie"):
+        Ct = torch.from_numpy(FAMILIES[f](n, rng).astype(np.float32)).cuda()
+        u, v = pipe.predict_duals(Ct[None])
+        with torch.inference_mode():
+            on_card = lapjv_seeded_single(Ct, u[0], v[0], gate=pipe.gate)
+            on_cpu = lapjv_seeded_single(Ct.cpu(), u[0].cpu(), v[0].cpu(), gate=pipe.gate)
+        same_x = torch.equal(on_card.col_of_row.cpu(), on_cpu.col_of_row)
+        same_v = torch.equal(on_card.v.cpu().view(torch.int32), on_cpu.v.view(torch.int32))
+        if not (same_x and same_v):
+            raise AssertionError(f"{f}: the card and the CPU disagree (x {same_x}, v {same_v})")
+        report[f] = {"equal_col_of_row": same_x, "bit_equal_v": same_v,
+                     "used_fallback": bool(on_card.used_fallback)}
+    _emit({"phase": "device_vs_cpu", "n": n, "instances": report})
+
+
+def phase_device_breakdown(torch, pipe, C_np):
+    """Where one device solve's time goes (uniform, n = N_E2E): each stage on
+    the host clock between synchronizes, then one whole solve under
+    torch.profiler for the device's idle share and K4's device time."""
+    from lapgnn_tpu_torch.solver.jv import SolveStats
+    from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
+
+    Ct = torch.from_numpy(C_np).cuda()
+    u, v = pipe.predict_duals(Ct[None])
+
+    def solve(stats):
+        with torch.inference_mode():
+            lapjv_seeded_single(Ct, u[0], v[0], eps=pipe.eps, gate=pipe.gate, stats=stats)
+
+    timed = SolveStats(timed=True)
+    solve(timed)
+    rows, wall_ms = _profile(torch, lambda: solve(SolveStats()))
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    k4_ms = sum(d for d, k, _ in rows if "twomin" in k) / 1e3
+    _emit({
+        "phase": "device_breakdown", "n": C_np.shape[-1],
+        "stage_ms": timed.stage_ms, "flip_ms": timed.flip_ms,
+        "host_syncs": timed.host_syncs,
+        "k4_device_ms": k4_ms if rows else "not measured",
+        "k4_share_of_arr": (k4_ms / timed.stage_ms["arr"]) if rows else "not measured",
+        "profiled_solve_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if rows else "not measured",
+        "device_idle_share": (1.0 - busy_ms / wall_ms) if rows else "not measured",
+        "top_kernels": [{"name": k[:80], "device_ms": d / 1e3, "count": c} for d, k, c in rows[:8]],
+    })
+
+
+def _time_ms(torch, fn, reps, flush, queued=True):
+    """Median CUDA-event time of ``fn`` with L2 flushed before each launch.
+
+    Queued (the default): a spin kernel first, then every rep's flush, start
+    event, launch and end event without a synchronize between reps, and one
+    synchronize at the end.  The host enqueues the reps while the card
+    spins, so the card finds each launch already queued and the host's
+    launch latency stays out of the event windows.  ``queued=False``
+    synchronises after every rep instead, so each rep starts on an idle
+    card and its window holds the host's launch latency."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES)
+    for start, end in zip(starts, ends):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        if not queued:
+            end.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
 def phase_times(torch, seed):
-    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats
+    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
     from lapgnn_tpu_torch.ops.cuda.features import row_features_stats_plain
+    from lapgnn_tpu_torch.ops.cuda.twomin import two_min_plain
 
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
     out = {}
     for n in (2048, 8192):
         C = _batch(torch, n, seed + 7 * n, fams=("uniform",))
-        u = torch.randn((1, n), device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed)) * 0.3
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        u = torch.randn((1, n), device="cuda", generator=g) * 0.3
+        v = torch.randn((1, n), device="cuda", generator=g) * 0.3
         cm = col_min_plain(C)
         reps = 20 if n == 2048 else 10
         fns = {
@@ -276,18 +533,47 @@ def phase_times(torch, seed):
                 lambda: row_features_stats_plain(C, cm),
                 None,
             ),
+            "two_min": (lambda: two_min(C, v), lambda: two_min_plain(C, v), None),
         }
         for name, (kern, plain, lib) in fns.items():
             bound, by = _bound_ms(name, 1, n, n)
-            out.setdefault(name, {})[n] = {
+            row = {
                 "ms": _time_ms(torch, kern, reps, flush),
                 "plain_ms": _time_ms(torch, plain, max(3, reps // 4), flush),
                 "library_ms": None if lib is None else _time_ms(torch, lib, reps, flush),
                 "bound_ms": bound,
                 "bound_by": by,
             }
+            if n == N_E2E:
+                row["ms_synced_loop"] = _time_ms(torch, kern, reps, flush, queued=False)
+            out.setdefault(name, {})[n] = row
     _emit({"phase": "times", "batch": 1, "kernels": out})
     return out
+
+
+def _profile(torch, fn):
+    """Run ``fn`` once under torch.profiler.  Returns the kernels' rows
+    (device us, name, count), heaviest first, and the host-clock ms of the
+    run, which ends in a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        # kernel events only: an aten op's device time repeats its kernels'
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            if dev_us > 0:
+                rows.append((dev_us, evt.key, evt.count))
+    rows.sort(reverse=True)
+    return rows, wall_ms
 
 
 def phase_breakdown(torch, pipe, C_np):
@@ -314,24 +600,7 @@ def phase_breakdown(torch, pipe, C_np):
         no_flush = torch.empty(1, device="cuda")
         stage_ms = {k: _time_ms(torch, fn, 5, no_flush) for k, fn in stages.items()}
 
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            pipe.predict_duals(cost)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        # kernel events only: an aten op's device time repeats its kernels'
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-            if dev_us > 0:
-                rows.append((dev_us, evt.key, evt.count))
-    rows.sort(reverse=True)
+        rows, wall_ms = _profile(torch, lambda: pipe.predict_duals(cost))
     busy_ms = sum(r[0] for r in rows) / 1e3
     _emit({
         "phase": "breakdown", "n": C_np.shape[-1], "stage_ms": stage_ms,
@@ -367,8 +636,11 @@ def main() -> int:
     try:
         phase_build(torch)
         errs = phase_compare(torch, args.seed)
-        launches, pipe, c_uniform = phase_e2e(torch, args.seed)
+        pipe, c_uniform = phase_e2e(torch, args.seed)
         phase_breakdown(torch, pipe, c_uniform)
+        launches, dpipe, costs = phase_device_e2e(torch, args.seed)
+        phase_device_vs_cpu(torch, dpipe, args.seed)
+        phase_device_breakdown(torch, dpipe, costs["uniform"])
         times = phase_times(torch, args.seed)
     except Exception:
         traceback.print_exc()

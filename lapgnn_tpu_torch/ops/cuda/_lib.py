@@ -53,11 +53,17 @@ def _bind_features(lib: ctypes.CDLL) -> None:
     lib.lapgnn_row_features_max_m.argtypes = [_I]
 
 
+def _bind_twomin(lib: ctypes.CDLL) -> None:
+    lib.lapgnn_two_min.restype = _I
+    lib.lapgnn_two_min.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
+
+
 KERNEL_LIBS: Dict[str, SharedLibrary] = {
     "colmin": SharedLibrary(CSRC / "colmin.cu", "kernels", _nvcc_command, _bind_colmin),
     "features": SharedLibrary(
         CSRC / "features.cu", "kernels", _nvcc_command, _bind_features
     ),
+    "twomin": SharedLibrary(CSRC / "twomin.cu", "kernels", _nvcc_command, _bind_twomin),
 }
 
 

@@ -1,20 +1,28 @@
 """Warm-start pipeline: C -> features -> OneGNN -> seed policy -> exact solve.
 
-Port of ``lapgnn_tpu/pipeline.py``, hybrid mode: the dual prediction runs on
+Port of ``lapgnn_tpu/pipeline.py``.  Both modes share the dual prediction on
 the GPU (row features through kernel K3, which runs K1; the seed policy's
-min-trick projections through K2), ``(u, v)`` come back in one stacked
-device-to-host copy, and the native seeded Jonker–Volgenant solver solves
-exactly in float64 on the host.  This is also the original system's own GPU
-posture: GPU predict, then a C++ solve.
+min-trick projections through K2):
 
-Not ported yet (each raises ``NotImplementedError``): ``mode="device"`` (the
-device-resident seeded solver, the next slice), the lossy transfer encodings
-and ``solve_stream`` (the slice after it).
+  * ``device`` (the default, as in the JAX class): the seeded
+    Jonker–Volgenant solve runs on the GPU in float32
+    (``solver.seeded.lapjv_seeded_single``, whose ARR bid is kernel K4),
+    instance by instance; one packed float32 buffer ``[cost, used_fallback,
+    col_of_row, v]`` comes back to the host in one copy, and ``certify=True``
+    holds each result to the float64 certificate against the caller's
+    matrix, repairing the duals or polishing on the host where it fails.
+  * ``hybrid``: ``(u, v)`` come back in one stacked copy and the native
+    seeded solver solves exactly in float64 on the host (the original
+    system's own GPU posture: GPU predict, then a C++ solve).
+
+Not ported yet (each raises ``NotImplementedError``): the lossy transfer
+encodings and ``solve_stream``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple, Union
+import time
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,17 +33,15 @@ from .ops.dual import fast_min_trick, robust_normalize
 from .ops.features import fast_row_features
 from .ops.rank1 import rank1_duals
 from .ops.sinkhorn import auto_select_seed
+from .solver.jv import SolveStats
+from .solver.seeded import lapjv_seeded_single
 from .train.convert import params_from_flax
 
 __all__ = ["WarmStartPipeline", "predict_duals_fn"]
 
-_DEVICE_SLICE = (
-    "mode='device' (the device-resident seeded solver) is the next slice of "
-    "the port and is not ported yet; use mode='hybrid'"
-)
 _TRANSFER_SLICE = (
-    "lossy transfer encodings and solve_stream come with the slice after the "
-    "device-resident solver and are not ported yet; use transfer_dtype='float32'"
+    "lossy transfer encodings and solve_stream are the next slice of the port "
+    "and are not ported yet; use transfer_dtype='float32'"
 )
 
 
@@ -116,8 +122,6 @@ class WarmStartPipeline:
             raise ValueError("route must be 'auto', 'device', or 'host'")
         if gate not in ("density", "free_rows", "both", "never"):
             raise ValueError("gate must be 'density', 'free_rows', 'both', or 'never'")
-        if mode == "device":
-            raise NotImplementedError(_DEVICE_SLICE)
         if transfer_dtype != "float32":
             raise NotImplementedError(_TRANSFER_SLICE)
         self.device = resolve_device(device)
@@ -128,11 +132,11 @@ class WarmStartPipeline:
         self.seed_mode = seed_mode
         self.transfer_dtype = transfer_dtype
         self.transfer_topk = transfer_topk
-        # Size routing engages only in device mode (pipeline.py:590-598 of the
-        # JAX version); a hybrid pipeline routes to the host only when asked.
         self.route = route
         self.route_device_min_n = route_device_min_n
         self.route_native_max_n = route_native_max_n
+        # Loop counts of each instance of the last device-mode solve.
+        self.last_solve_stats: List[SolveStats] = []
         model.load_state_dict(params_from_flax(params))
         self.model = model.to(self.device).eval()
         self._predict = predict_duals_fn(
@@ -155,14 +159,43 @@ class WarmStartPipeline:
     def solve(self, cost, certify: bool = False) -> Dict[str, np.ndarray]:
         """Solve a batch.  Returns a dict with col_of_row, cost and
         used_fallback; with ``certify`` also certified, gap_bound, repaired,
-        polished and polish_ms.  Hybrid solves are float64-exact, so the
-        certificate fields are trivially satisfied, as in the JAX version."""
-        if self.route == "host":
+        polished and polish_ms.
+
+        In device mode ``certify`` evaluates the float64 dual certificate of
+        each float32 device result against ``cost`` on the host, repairs the
+        duals or polishes the assignment where it fails (as in the JAX
+        version); certified entries take the float64 cost of their
+        assignment.  Hybrid solves are float64-exact, so their certificate
+        fields are trivially satisfied."""
+        on_card = isinstance(cost, torch.Tensor) and cost.device.type == "cuda"
+        if not on_card and self._route_to_host(np.shape(cost)[-1]):
             return self._solve_host_route(_host_f64(cost), certify)
+        if self.mode == "device":
+            cost_t = self._to_device(cost)
+            n = cost_t.shape[-1]
+            if cost_t.shape[-2] != n:
+                raise ValueError(f"device mode solves square instances, got {tuple(cost_t.shape)}")
+            packed = self._solve_device(cost_t)
+            out = self._unpack(packed, n)
+            if certify:
+                self._certify_and_polish(_host_f64(cost), packed, out)
+            return out
         out = self._solve_hybrid(cost)
         if certify:
             _add_trivial_certificate(out)
         return out
+
+    def _route_to_host(self, n: int) -> bool:
+        """Whether a batch of size n that lies on the host solves on the host.
+        ``route="host"`` always; ``"auto"`` in device mode below
+        ``route_device_min_n``, and only when the pipeline's device is a GPU
+        (on the CPU the device is the host: there is no transfer to save).
+        A CUDA tensor is never routed."""
+        if self.route == "host":
+            return True
+        if self.route != "auto" or self.mode != "device":
+            return False
+        return n < self.route_device_min_n and self.device.type == "cuda"
 
     def solve_stream(self, costs, certify: bool = False, microbatch: int = 1) -> list:
         raise NotImplementedError(_TRANSFER_SLICE)
@@ -193,6 +226,112 @@ class WarmStartPipeline:
         if certify:
             _add_trivial_certificate(out)
         return out
+
+    def _solve_device(self, cost_t: torch.Tensor) -> np.ndarray:
+        """Predict, then the seeded float32 solve instance by instance on the
+        device (as the JAX serving program's ``lax.scan``), then one packed
+        (B, 2 + 2n) float32 buffer ``[cost, used_fallback, col_of_row, v]``
+        copied to the host once (pipeline.py:440-489 of the JAX version)."""
+        u, v = self._predict(cost_t)
+        self.last_solve_stats = []
+        rows = []
+        with torch.inference_mode():
+            for b in range(cost_t.shape[0]):
+                stats = SolveStats()
+                res = lapjv_seeded_single(
+                    cost_t[b], u[b], v[b], eps=self.eps, gate=self.gate, stats=stats
+                )
+                self.last_solve_stats.append(stats)
+                rows.append(torch.cat([
+                    res.cost[None].to(torch.float32),
+                    res.used_fallback[None].to(torch.float32),
+                    res.col_of_row.to(torch.float32),
+                    res.v.to(torch.float32),
+                ]))
+            return torch.stack(rows).cpu().numpy()
+
+    @staticmethod
+    def _unpack(packed: np.ndarray, n: int) -> Dict[str, np.ndarray]:
+        return {
+            "col_of_row": packed[:, 2 : 2 + n].astype(np.int64),
+            "cost": packed[:, 0].astype(np.float64),
+            "used_fallback": packed[:, 1] > 0.5,
+        }
+
+    def _certify_and_polish(
+        self, cost_np: np.ndarray, packed: np.ndarray, out: Dict[str, np.ndarray]
+    ) -> None:
+        """Float64 exactness pass against the true cost matrix, in place
+        (pipeline.py:656 of the JAX version).  Cheapest sufficient proof
+        first:
+          1. the raw certificate with the device duals as they are;
+          2. the native dual repair (``repair_duals_native``), which succeeds
+             iff the device assignment is exactly optimal for the true
+             matrix;
+          3. the native float64 solve warm-started from the device duals, and
+             the cold native solve if that fails its own certificate or the
+             device result is unusable (NaN duals, not a permutation).
+        Certified entries take the f64 cost of their assignment.  Adds
+        'certified', 'gap_bound', 'repaired', 'polished', 'polish_ms'."""
+        from .solver.native import (
+            NativeSolveError,
+            lapjv_native,
+            lapjv_seeded_native,
+            repair_duals_native,
+        )
+        from .solver.verification import certify_assignment
+
+        B, n = packed.shape[0], cost_np.shape[-1]
+        v_all = packed[:, 2 + n :].astype(np.float64)
+        certified = np.zeros(B, bool)
+        gap_bound = np.zeros(B)
+        repaired = np.zeros(B, bool)
+        polished = np.zeros(B, bool)
+        polish_ms = np.zeros(B)
+        for b in range(B):
+            x_b = out["col_of_row"][b]
+            usable = (
+                np.array_equal(np.sort(x_b), np.arange(n)) and np.isfinite(v_all[b]).all()
+            )
+            ok, _, bound = certify_assignment(cost_np[b], x_b, v_all[b], tol=self.certify_tol)
+            if not ok and usable:
+                try:
+                    rep = repair_duals_native(cost_np[b], x_b, v_all[b])
+                except NativeSolveError:
+                    rep = None  # no toolchain: the polish below decides
+                if rep is not None and np.isfinite(rep[1]):
+                    viol = max(0.0, -rep[1])
+                    ok = viol <= self.certify_tol
+                    bound = n * viol
+                    repaired[b] = ok
+            certified[b], gap_bound[b] = ok, bound
+            if ok:
+                out["cost"][b] = float(cost_np[b][np.arange(n), x_b].sum())
+                continue
+            t0 = time.perf_counter()
+            if usable:
+                u_b = cost_np[b][np.arange(n), x_b] - v_all[b][x_b]
+                x, _, c, info = lapjv_seeded_native(
+                    cost_np[b], u_b, v_all[b], eps=self.eps, gate=self.gate,
+                    return_info=True,
+                )
+                v_fin = info["v"]
+            else:
+                x, _, c, _, v_fin = lapjv_native(cost_np[b], return_duals=True)
+            ok2, _, bound2 = certify_assignment(cost_np[b], x, v_fin, tol=self.certify_tol)
+            if not ok2 and usable:
+                x, _, c, _, v_fin = lapjv_native(cost_np[b], return_duals=True)
+                ok2, _, bound2 = certify_assignment(cost_np[b], x, v_fin, tol=self.certify_tol)
+            out["col_of_row"][b] = x
+            out["cost"][b] = c
+            certified[b], gap_bound[b] = ok2, bound2
+            polished[b] = True
+            polish_ms[b] = (time.perf_counter() - t0) * 1e3
+        out["certified"] = certified
+        out["gap_bound"] = gap_bound
+        out["repaired"] = repaired
+        out["polished"] = polished
+        out["polish_ms"] = polish_ms
 
     def _solve_hybrid(self, cost) -> Dict[str, np.ndarray]:
         """GPU predict, one stacked (B, 2, n) device-to-host copy of (u, v),

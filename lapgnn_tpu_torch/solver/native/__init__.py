@@ -1,7 +1,7 @@
 """ctypes bindings for the port's copy of the native lapx solver (``lapx.cpp``).
 
 The exact float64 Jonker–Volgenant solver that the hybrid path runs on the
-host.  ``lapx.cpp`` is the port's own copy of
+host, and the dual repair of the device path's certificate.  ``lapx.cpp`` is the port's own copy of
 ``lapgnn_tpu/solver/native/lapx.cpp``; it is built with ``g++ -O3
 -march=native`` at first use into the repository's ``build/native/``, so it
 is never shared with the JAX package's cache.
@@ -13,13 +13,13 @@ import ctypes
 import platform
 import shutil
 from pathlib import Path
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..._build import BuildError, SharedLibrary
 
-__all__ = ["lapjv_native", "lapjv_seeded_native", "NativeSolveError"]
+__all__ = ["lapjv_native", "lapjv_seeded_native", "repair_duals_native", "NativeSolveError"]
 
 
 class NativeSolveError(RuntimeError):
@@ -45,6 +45,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.lapx_seeded.argtypes = [
         ctypes.c_int, f64p, f64p, f64p, ctypes.c_double, i32p, i32p, i32p,
         f64p, f64p, ctypes.c_int,
+    ]
+    lib.lapx_repair_duals.restype = ctypes.c_int
+    lib.lapx_repair_duals.argtypes = [
+        ctypes.c_int, f64p, i32p, f64p, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_double),
     ]
 
 
@@ -119,3 +124,34 @@ def lapjv_seeded_native(
     if return_info:
         return x, y, cost, {"used_fallback": bool(fb[0]), "u": u, "v": v}
     return x, y, cost
+
+
+def repair_duals_native(
+    C: np.ndarray,
+    col_of_row: np.ndarray,
+    v0: np.ndarray,
+    max_scans: int = 0,
+) -> Optional[Tuple[np.ndarray, float]]:
+    """Warm-started exact dual repair of a candidate optimal assignment.
+
+    Drives ``v0`` to the min-plus fixpoint of the difference constraints the
+    assignment induces on the true matrix ``C`` (heap-ordered label
+    correcting, ``lapx.cpp:lapx_repair_duals``).  Returns ``(v, min_red)``:
+    with ``u_i = C[i, x_i] - v[x_i]``, (u, v) is tight on the assignment, so
+    ``min_red >= -tol`` certifies it ``tol``-optimal with a zero
+    complementary-slackness gap.  Returns ``None`` when the relaxation budget
+    (``max_scans`` column scans, 64 n when 0) runs out, the sign of a
+    suboptimal assignment; raises on malformed inputs."""
+    C = _square(C, "repair_duals_native")
+    n = C.shape[0]
+    x = np.ascontiguousarray(col_of_row, np.int32)
+    v = np.array(v0, np.float64, copy=True, order="C")
+    if x.shape != (n,) or v.shape != (n,):
+        raise ValueError(f"x/v shapes {x.shape}/{v.shape} must be ({n},)")
+    min_red = ctypes.c_double(float("nan"))
+    rc = _lib().lapx_repair_duals(n, C, x, v, int(max_scans), ctypes.byref(min_red))
+    if rc == -1:
+        return None
+    if rc != 0:
+        raise NativeSolveError(f"lapx_repair_duals failed with code {rc}")
+    return v, float(min_red.value)

@@ -1,21 +1,24 @@
 // lapx: dense Jonker-Volgenant assignment solver with warm-start support.
 //
-// The port's copy of the dense and warm-started solvers of
-// lapgnn_tpu/solver/native/lapx.cpp: the exact float64 host solve of the
-// hybrid path, written around a small DualState struct and a plain-Dijkstra
-// augmenting search.
+// The port's copy of the dense and warm-started solvers and the dual repair
+// of lapgnn_tpu/solver/native/lapx.cpp: the exact float64 host solve of the
+// hybrid path and the certify-and-polish pass of the device path, written
+// around a small DualState struct and a plain-Dijkstra augmenting search.
 //
 // Exposed via extern "C" for ctypes:
 //   lapx_dense(n, C, x, y, u, v)                     - cold optimal solve
 //   lapx_seeded(n, C, u_seed, v_seed, eps, x, y, fb) - warm-started solve
+//   lapx_repair_duals(n, C, x, v, max_scans, min_red) - dual repair of a
+//                                                       candidate assignment
 //
-// Both return 0 on success and fill x (column of each row), y (row of each
-// column) and the final dual potentials. Costs are row-major double.
+// The solvers return 0 on success and fill x (column of each row), y (row of
+// each column) and the final dual potentials. Costs are row-major double.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <limits>
+#include <queue>
 #include <utility>
 #include <vector>
 
@@ -357,6 +360,121 @@ int lapx_seeded(int n, const double* C, const double* u_seed,
   const int rc = augment_all(S, free_rows);
   if (rc != 0) return rc;
   export_solution(S, x, y, u_out, v_out);
+  return 0;
+}
+
+
+// Dual repair: exact optimality certificate for a candidate assignment,
+// without a re-solve.
+//
+// Given an assignment x claimed optimal for C (e.g. produced by a device
+// solve of a LOW-PRECISION copy of C — the bf16-transfer streamed posture)
+// and near-feasible column potentials v, drive v to the fixpoint
+//     v_k = min(v_k, min_i (C[i,k] + v[x_i] - C[i,x_i]))
+// — multi-source shortest paths on the column graph whose arcs leave each
+// column j through its matched row row_of_col[j].  With
+// u_i = C[i,x_i] - v[x_i] the pair (u, v) is tight on x by construction, so
+// reaching the fixpoint proves  min reduced cost >= 0  <=>  x is exactly
+// optimal for the TRUE matrix; if x is suboptimal the constraint graph has
+// a negative cycle and the relaxation cannot terminate — surfaced as a
+// budget blow-up (return -1), never as a false certificate.
+//
+// Heap-ordered label-correcting: the min-heap keys on (v[k] - v0[k]), so
+// the column with the LARGEST decrease from its starting potential (the
+// most-negative key) pops first — deepest-first settling, which drains the
+// dominant source of further relaxations before its downstream columns are
+// scanned.  Warm-started from duals within ~rounding of feasible, columns
+// rarely re-relax after popping, so total work is ~2 dense passes over C
+// plus a near-empty heap — vs the ~50-100 full Bellman-Ford rounds a cold
+// fixpoint needs at n=2048.  (Any pop order converges; the order only
+// affects the constant.)
+//
+// Capability analog in the reference: dual_computation.py:13-74 rebuilds
+// duals from an optimal matching by relaxing all n^2 difference constraints
+// in Python (cold start, generation-time only).  This is the warm-started
+// native equivalent serving the device path's certificate
+// (lapgnn_tpu_torch/pipeline.py::_certify_and_polish).
+//
+// Returns 0 on fixpoint (v updated in place, *min_red_out = exact f64
+// minimum reduced cost over all n^2 edges), -1 if the relaxation budget was
+// exhausted (x very likely suboptimal; caller should re-solve), -2 on bad
+// arguments (including x not being a permutation).
+int lapx_repair_duals(int n, const double* C, const int32_t* x, double* v,
+                      long long max_scans, double* min_red_out) {
+  if (n <= 0 || !C || !x || !v || !min_red_out) return -2;
+  vector<int> row_of_col(n, -1);
+  for (int i = 0; i < n; ++i) {
+    const int j = x[i];
+    if (j < 0 || j >= n || row_of_col[j] >= 0) return -2;
+    row_of_col[j] = i;
+  }
+  // Default budget: 64n column scans.  Warm bf16-rounded duals typically
+  // need ~2n; the round-4 bench measured instances where 16n bailed on
+  // EXACTLY OPTIMAL assignments (forcing a ~170 ms polish for nothing),
+  // while 64n repaired every one in ~20 ms.  The budget's only job is to
+  // bound the negative-cycle blowup of a genuinely suboptimal assignment:
+  // 64n scans * O(n) work is ~0.3 s at n=2048 — still far below the
+  // repeated-cold-solve cost the -1 return then avoids.
+  if (max_scans <= 0) max_scans = 64LL * n;
+  const long long max_pushes = 2 * max_scans;
+
+  vector<double> v0(v, v + n);  // heap keys are decreases vs the start
+  using Item = std::pair<double, int>;
+  std::priority_queue<Item, vector<Item>, std::greater<Item>> heap;
+  long long scans = 0, pushes = 0;
+
+  // Initial full relaxation (row-major friendly): one pass over C seeds the
+  // heap with every column the starting potentials fail to dominate.
+  for (int i = 0; i < n; ++i) {
+    const double* row = C + (size_t)i * n;
+    const double w = v[x[i]] - row[x[i]];
+    for (int k = 0; k < n; ++k) {
+      const double cand = row[k] + w;
+      if (cand < v[k]) v[k] = cand;
+    }
+  }
+  scans += n;
+  for (int k = 0; k < n; ++k) {
+    if (v[k] < v0[k]) {
+      heap.emplace(v[k] - v0[k], k);
+      ++pushes;
+    }
+  }
+
+  while (!heap.empty()) {
+    const Item top = heap.top();
+    heap.pop();
+    const int j = top.second;
+    if (top.first != v[j] - v0[j]) continue;  // stale entry (lazy deletion)
+    if (++scans > max_scans) return -1;
+    const int i = row_of_col[j];
+    const double* row = C + (size_t)i * n;
+    const double w = v[j] - row[j];
+    for (int k = 0; k < n; ++k) {
+      const double cand = row[k] + w;
+      if (cand < v[k]) {
+        v[k] = cand;
+        if (++pushes > max_pushes) return -1;
+        heap.emplace(v[k] - v0[k], k);
+      }
+    }
+  }
+
+  // Certificate pass: exact f64 min reduced cost with u_i = C[i,x_i]-v[x_i].
+  // NaN-hostile: any NaN reduced cost must surface as a failed certificate
+  // (NaN), never be skipped by a comparison that is false on NaN.
+  double min_red = INF;
+  bool has_nan = false;
+  for (int i = 0; i < n; ++i) {
+    const double* row = C + (size_t)i * n;
+    const double u_i = row[x[i]] - v[x[i]];
+    for (int k = 0; k < n; ++k) {
+      const double r = row[k] - u_i - v[k];
+      if (r != r) has_nan = true;
+      else if (r < min_red) min_red = r;
+    }
+  }
+  *min_red_out = has_nan ? std::numeric_limits<double>::quiet_NaN() : min_red;
   return 0;
 }
 

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases build,compare,times]
+
+``--phases`` runs a subset (for a first look at a changed kernel) and then
+prints no ``ok`` line; with no arguments every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -9,8 +12,14 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      built together from the checkout into ``build/``.
   2. Kernels against their plain PyTorch versions at n = 1000, 2048 and 8192
      on a (uniform, tie) batch of two: K1 column min, K2 min-trick and K4
-     two-min must match bit for bit (K4 also on rows with +-inf and NaN at
-     n = 1000), K3 row-feature statistics within rtol 2e-5 / atol 2e-6.
+     two-min must match bit for bit (K4 also on rows with +-inf and NaN),
+     K3 row-feature statistics within rtol 2e-5 / atol 2e-6 with its
+     selection channels (min, max, MAD, second-best gap, near-best,
+     is-col-best) bit-equal, also on all-equal rows, rows of mixed +-0.0 and
+     rows with +-inf.  K3 and K4 again at the ragged shapes their tiling
+     must survive: m in {1, 7, 10, 11, 33, 1001}, m = 16384 (eight warps a
+     row), m = 20000 (K3's shared-memory path), and a view that starts 4
+     bytes into its buffer.
   3. Hybrid end to end: ``WarmStartPipeline(mode="hybrid", seed_mode="auto",
      normalize_costs=True)`` with ``artifacts/one_gnn_default`` (OneGNN,
      hidden 192, 4 layers, top-k 16) solves one instance of each of four
@@ -133,8 +142,10 @@ def _bound_ms(name: str, B: int, n: int, m: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_build(torch):
-    """Build every library at once, one compiler process each."""
+def phase_build(torch, strict=True):
+    """Build every library at once, one compiler process each, and print
+    what ``nvcc -Xptxas -v`` said of every kernel.  A kernel that spills
+    registers fails the phase (``strict``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from lapgnn_tpu_torch.ops.cuda._lib import KERNEL_LIBS
@@ -150,11 +161,16 @@ def phase_build(torch):
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         seconds = dict(zip(libs, pool.map(timed_load, libs.values())))
+    spills = []
     for name in KERNEL_LIBS:
         log = KERNEL_LIBS[name].path.with_suffix(".log")
         for line in (log.read_text() if log.exists() else "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills.append(f"{name}: {line.strip()}")
+    if spills and strict:
+        raise AssertionError(f"kernels spill registers: {spills}")
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
            "per_library_seconds": seconds})
 
@@ -188,12 +204,78 @@ def _check_two_min(torch, got, want, what):
     return err
 
 
+# K3's channels that are selections or counts: bit-equal to the plain version.
+K3_EXACT_CHANNELS = (0, 1, 4, 6, 11, 12)
+# (rows, m) beyond the square sizes, for K3 and K4: odd m, m < k = 10, m not a
+# multiple of 4 or 32, eight warps a row, and K3's shared-memory path.
+RAGGED_SHAPES = ((37, 1), (37, 7), (37, 10), (37, 11), (37, 33), (50, 1001),
+                 (40, 16384), (12, 20000))
+
+
+def _check_k3(torch, C, what, finite=False):
+    """K3 against its plain version on the same input: every channel within
+    K3_RTOL / K3_ATOL, the selection channels bit-equal.  Entries where the
+    plain version is NaN (inf - inf inside a float sum of a row with +-inf)
+    are not compared: there the kernel keeps what it always gave (its
+    ``fmaxf`` / ``fminf`` drop a NaN operand where torch propagates it).
+    Returns the kernel's result and the largest absolute difference over
+    the finite entries."""
+    from lapgnn_tpu_torch.ops.cuda import row_features_stats
+    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain
+    from lapgnn_tpu_torch.ops.cuda.features import row_features_stats_plain
+
+    got = row_features_stats(C)
+    want = row_features_stats_plain(C, col_min_plain(C))
+    torch.cuda.synchronize()
+    if finite and not torch.isfinite(got).all():
+        raise AssertionError(f"row_features_stats is not finite ({what})")
+    known = ~torch.isnan(want)
+    torch.testing.assert_close(got[known], want[known], rtol=K3_RTOL, atol=K3_ATOL,
+                               msg=lambda m: f"row_features_stats ({what}): {m}")
+    for ch in K3_EXACT_CHANNELS:
+        if not torch.equal(got[..., ch].view(torch.int32), want[..., ch].view(torch.int32)):
+            raise AssertionError(
+                f"row_features_stats channel {ch} is not bit-equal to its plain version ({what})")
+    fin = torch.isfinite(want)
+    return got, float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
+def _special_rows(torch, C):
+    """A copy of the (2, n, m >= 7) batch with rows that try the selections:
+    all equal, +-0.0 mixed between -1 and 1, +inf, -inf, and both."""
+    S = C.clone()
+    m = S.shape[-1]
+    S[0, 1, :] = 0.25
+    S[0, 2, :] = 0.0
+    S[0, 2, ::2] = -0.0
+    S[0, 2, 0], S[0, 2, m - 1] = -1.0, 1.0
+    S[1, 1, :] = S[0, 2, :]
+    S[1, 1, m // 2] = 0.5
+    S[0, 3, 5] = float("inf")
+    S[0, 4, 2] = float("-inf")
+    S[1, 2, 1], S[1, 2, m - 2] = float("-inf"), float("inf")
+    return S
+
+
+def _nan_inf_rows(torch, C):
+    """+-inf in one row, NaN in three others (one NaN, two NaNs, and a NaN
+    with its sign bit set)."""
+    S = C.clone()
+    m = S.shape[-1]
+    S[1, 9, 3] = torch.tensor([-4194303], dtype=torch.int32).view(torch.float32).item()
+    S[0, 3, 5] = float("inf")
+    S[0, 4, 2] = S[0, 4, m - 1] = float("-inf")
+    S[1, 7, m - 2] = float("nan")
+    S[1, 8, 1] = S[1, 8, m // 2] = float("nan")
+    return S
+
+
 def phase_compare(torch, seed):
     from lapgnn_tpu_torch.ops import features
-    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
+    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, two_min
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
-    from lapgnn_tpu_torch.ops.cuda.features import row_features_stats_plain
-    from lapgnn_tpu_torch.ops.cuda.twomin import two_min_plain
+    from lapgnn_tpu_torch.ops.cuda.features import row_features_geometry
+    from lapgnn_tpu_torch.ops.cuda.twomin import two_min_geometry, two_min_kernel, two_min_plain
 
     errs = {name: 0.0 for name in KERNELS}
     detail = []
@@ -203,35 +285,71 @@ def phase_compare(torch, seed):
         u = torch.randn((2, n), generator=g, device="cuda") * 0.3
         k1, p1 = col_min(C), col_min_plain(C)
         k2, p2 = min_trick(C, u), min_trick_plain(C, u)
-        k3, p3 = row_features_stats(C), row_features_stats_plain(C, col_min_plain(C))
         sort_path = features.row_features(C)[..., :13]
         torch.cuda.synchronize()
         if not torch.equal(k1.view(torch.int32), p1.view(torch.int32)):
             raise AssertionError(f"col_min differs from amin at n={n}")
         if not torch.equal(k2.view(torch.int32), p2.view(torch.int32)):
             raise AssertionError(f"min_trick differs from its plain version at n={n}")
-        if not torch.isfinite(k3).all():
-            raise AssertionError(f"row_features_stats is not finite at n={n}")
-        torch.testing.assert_close(k3, p3, rtol=K3_RTOL, atol=K3_ATOL)
-        e3 = float((k3 - p3).abs().max())
+        k3, e3 = _check_k3(torch, C, f"n={n}", finite=True)
+        _check_k3(torch, _special_rows(torch, C), f"special rows, n={n}")
         errs["col_min"] = max(errs["col_min"], float((k1 - p1).abs().max()))
         errs["min_trick"] = max(errs["min_trick"], float((k2 - p2).abs().max()))
         errs["row_features_stats"] = max(errs["row_features_stats"], e3)
         v = torch.randn((2, n), generator=g, device="cuda") * 0.3
         errs["two_min"] = max(errs["two_min"], _check_two_min(
             torch, two_min(C, v), two_min_plain(C, v), f"n={n}"))
-        if n == COMPARE_SIZES[0]:
-            # +-inf in one row, NaN in two others (one NaN, and two NaNs)
-            S = C.clone()
-            S[0, 3, 5] = float("inf")
-            S[0, 4, 2] = S[0, 4, 9] = float("-inf")
-            S[1, 7, 11] = float("nan")
-            S[1, 8, 1] = S[1, 8, n // 2] = float("nan")
-            _check_two_min(torch, two_min(S, v), two_min_plain(S, v), "inf/NaN rows")
+        S = _nan_inf_rows(torch, C)
+        _check_two_min(torch, two_min(S, v), two_min_plain(S, v), f"inf/NaN rows, n={n}")
+        # every geometry the wrapper can be forced to
+        for force in ({"state": s, "unroll": r} for s in ("keys", "floats") for r in (4, 1)):
+            _check_two_min(torch, two_min_kernel(S, v, **force), two_min_plain(S, v),
+                           f"inf/NaN rows, n={n}, {force}")
         rel = ((k3 - sort_path).abs() / (sort_path.abs() + K3_ATOL / K3_RTOL)).amax((0, 1))
         detail.append({"n": n, "k3_max_abs_err": e3,
                        "k3_vs_sort_path_max_rel_per_channel": [float(x) for x in rel]})
-    _emit({"phase": "compare", "max_abs_err": errs, "detail": detail})
+
+    # Ragged and long rows: batch 0 continuous, batch 1 heavy with ties.
+    ragged = []
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    for rows, m in RAGGED_SHAPES:
+        C = torch.rand((2, rows, m), generator=g, device="cuda")
+        C[1] = torch.floor(C[1] * 8.0) / 8.0
+        v = torch.randn((2, m), generator=g, device="cuda") * 0.3
+        what = f"rows={rows}, m={m}"
+        _, e3 = _check_k3(torch, C, what, finite=True)
+        if m >= 7:
+            _check_k3(torch, _special_rows(torch, C), f"special rows, {what}")
+        errs["row_features_stats"] = max(errs["row_features_stats"], e3)
+        errs["two_min"] = max(errs["two_min"], _check_two_min(
+            torch, two_min(C, v), two_min_plain(C, v), what))
+        if m >= 7:
+            S = _nan_inf_rows(torch, C)
+            _check_two_min(torch, two_min(S, v), two_min_plain(S, v), f"inf/NaN rows, {what}")
+        ragged.append({"rows": rows, "m": m, "k3_max_abs_err": e3,
+                       "k3_path": row_features_geometry(m, True).path,
+                       "k3_warps_per_row": row_features_geometry(m, True).warps_per_row,
+                       "k4_vector_loads": two_min_geometry(rows, m, True, batch=2).vector})
+
+    # A view that starts 4 bytes into its buffer: contiguous, not 16-byte aligned.
+    n = COMPARE_SIZES[0]
+    C = _batch(torch, n, seed + n)
+    buf = torch.empty(C.numel() + 1, dtype=torch.float32, device="cuda")
+    Cu = buf[1:].view(C.shape).copy_(C)
+    vbuf = torch.empty(2 * n + 1, dtype=torch.float32, device="cuda")
+    vu = vbuf[1:].view(2, n).copy_(torch.randn((2, n), generator=g, device="cuda") * 0.3)
+    if Cu.data_ptr() % 16 == 0 or vu.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned views came out aligned")
+    _, e3 = _check_k3(torch, Cu, "unaligned view", finite=True)
+    _check_k3(torch, _special_rows(torch, Cu), "special rows, unaligned view")
+    errs["row_features_stats"] = max(errs["row_features_stats"], e3)
+    errs["two_min"] = max(errs["two_min"], _check_two_min(
+        torch, two_min(Cu, vu), two_min_plain(Cu, vu), "unaligned view"))
+    _check_two_min(torch, two_min(_nan_inf_rows(torch, Cu), vu),
+                   two_min_plain(_nan_inf_rows(torch, Cu), vu), "inf/NaN rows, unaligned view")
+
+    _emit({"phase": "compare", "max_abs_err": errs, "detail": detail, "ragged": ragged,
+           "unaligned_view": {"n": n, "k3_max_abs_err": e3}})
     return errs
 
 
@@ -482,8 +600,11 @@ def phase_device_breakdown(torch, pipe, C_np):
     })
 
 
-def _time_ms(torch, fn, reps, flush, queued=True):
-    """Median CUDA-event time of ``fn`` with L2 flushed before each launch.
+def _time_ms(torch, fn, reps, flush, queued=True, flush_by_read=False):
+    """Median CUDA-event time of ``fn`` with L2 flushed before each launch:
+    by ``flush.zero_()``, which leaves L2 full of dirty lines that the timed
+    reads must evict, or (``flush_by_read``) by a sum over ``flush``, which
+    leaves clean lines.
 
     Queued (the default): a spin kernel first, then every rep's flush, start
     event, launch and end event without a synchronize between reps, and one
@@ -500,7 +621,10 @@ def _time_ms(torch, fn, reps, flush, queued=True):
     if queued:
         torch.cuda._sleep(SPIN_CYCLES)
     for start, end in zip(starts, ends):
-        flush.zero_()
+        if flush_by_read:
+            flush.sum()
+        else:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -510,13 +634,62 @@ def _time_ms(torch, fn, reps, flush, queued=True):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def _device_us_per_launch(torch, fn, reps=20):
+    """Device time of ``fn``'s kernels per call, from torch.profiler, with
+    the data left in L2 between calls; None where the profiler saw none."""
+    for _ in range(3):
+        fn()
+    rows, _ = _profile(torch, lambda: [fn() for _ in range(reps)])
+    return sum(r[0] for r in rows) / reps if rows else None
+
+
+def _two_min_yardsticks(torch, C, v, reps, flush, no_flush):
+    """What K4's times at this size stand beside: the event window's floor (a
+    launch on 8 x 128 elements through the same wrapper), a row reduction of
+    the same matrix by the framework (``torch.amin`` over rows: one read of
+    C, not K4's function), both kernels flushed by a read instead of by
+    ``zero_``, and their device time per launch under the profiler."""
+    from lapgnn_tpu_torch.ops.cuda import two_min
+
+    tiny_C = torch.rand((1, 8, 128), device="cuda")
+    tiny_v = torch.zeros((1, 128), device="cuda")
+    kern = lambda: two_min(C, v)  # noqa: E731
+    amin = lambda: torch.amin(C, dim=-1)  # noqa: E731
+    return {
+        "event_floor_ms": _time_ms(torch, lambda: two_min(tiny_C, tiny_v), reps, no_flush),
+        "ms_read_flush": _time_ms(torch, kern, reps, flush, flush_by_read=True),
+        "device_us_per_launch_l2_resident": _device_us_per_launch(torch, kern),
+        "row_amin_ms": _time_ms(torch, amin, reps, flush),
+        "row_amin_ms_l2_resident": _time_ms(torch, amin, reps, no_flush),
+        "row_amin_ms_read_flush": _time_ms(torch, amin, reps, flush, flush_by_read=True),
+        "row_amin_device_us_per_launch_l2_resident": _device_us_per_launch(torch, amin),
+    }
+
+
+def _two_min_variants(torch, C, v, reps, flush, no_flush):
+    """K4's time with each compare state and either unroll, cold and with C
+    left in L2."""
+    from lapgnn_tpu_torch.ops.cuda.twomin import two_min_kernel
+
+    out = {}
+    for state in ("keys", "floats"):
+        for unroll in (4, 1):
+            fn = lambda: two_min_kernel(C, v, state=state, unroll=unroll)  # noqa: E731
+            out[f"{state}_unroll{unroll}"] = {
+                "ms": _time_ms(torch, fn, reps, flush),
+                "ms_l2_resident": _time_ms(torch, fn, reps, no_flush),
+            }
+    return out
+
+
 def phase_times(torch, seed):
     from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
-    from lapgnn_tpu_torch.ops.cuda.features import row_features_stats_plain
+    from lapgnn_tpu_torch.ops.cuda.features import row_features_stats_plain, stats_kernel
     from lapgnn_tpu_torch.ops.cuda.twomin import two_min_plain
 
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    no_flush = torch.empty(1, dtype=torch.float32, device="cuda")
     out = {}
     for n in (2048, 8192):
         C = _batch(torch, n, seed + 7 * n, fams=("uniform",))
@@ -547,6 +720,23 @@ def phase_times(torch, seed):
             if n == N_E2E:
                 row["ms_synced_loop"] = _time_ms(torch, kern, reps, flush, queued=False)
             out.setdefault(name, {})[n] = row
+
+        # K3 without K1 inside, on either path.
+        k3 = out["row_features_stats"][n]
+        k3["kernel_only_ms"] = _time_ms(torch, lambda: stats_kernel(C, cm), reps, flush)
+        k3["shared_path_kernel_only_ms"] = _time_ms(
+            torch, lambda: stats_kernel(C, cm, path="shared"), reps, flush)
+        # K4 with C left in L2 between launches, and every geometry.
+        k4 = out["two_min"][n]
+        k4["ms_l2_resident"] = _time_ms(torch, lambda: two_min(C, v), reps, no_flush)
+        k4["variants_ms"] = _two_min_variants(torch, C, v, reps, flush, no_flush)
+        k4["yardsticks"] = _two_min_yardsticks(torch, C, v, reps, flush, no_flush)
+        k3["kernel_only_ms_l2_resident"] = _time_ms(
+            torch, lambda: stats_kernel(C, cm), reps, no_flush)
+    n = 4096
+    C = _batch(torch, n, seed + 7 * n, fams=("uniform",))
+    v = torch.randn((1, n), device="cuda", generator=g) * 0.3
+    out["two_min"][n] = {"variants_ms": _two_min_variants(torch, C, v, 10, flush, no_flush)}
     _emit({"phase": "times", "batch": 1, "kernels": out})
     return out
 
@@ -614,6 +804,8 @@ def phase_breakdown(torch, pipe, C_np):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="",
+                    help="comma-separated subset of build,compare,times (no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -634,6 +826,14 @@ def main() -> int:
     _emit({"torch": torch.__version__, "cuda": torch.version.cuda,
            "python": sys.version.split()[0]})
     try:
+        if args.phases:
+            subset = {"build": lambda: phase_build(torch, strict=False),
+                      "compare": lambda: phase_compare(torch, args.seed),
+                      "times": lambda: phase_times(torch, args.seed)}
+            for phase in args.phases.split(","):
+                subset[phase]()
+            print(f"chip_smoke: partial run ({args.phases}), no ok line")
+            return 0
         phase_build(torch)
         errs = phase_compare(torch, args.seed)
         pipe, c_uniform = phase_e2e(torch, args.seed)

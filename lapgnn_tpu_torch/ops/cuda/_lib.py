@@ -48,14 +48,16 @@ def _bind_colmin(lib: ctypes.CDLL) -> None:
 
 def _bind_features(lib: ctypes.CDLL) -> None:
     lib.lapgnn_row_features_stats.restype = _I
-    lib.lapgnn_row_features_stats.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _VP]
+    lib.lapgnn_row_features_stats.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]
     lib.lapgnn_row_features_max_m.restype = _I
     lib.lapgnn_row_features_max_m.argtypes = [_I]
 
 
 def _bind_twomin(lib: ctypes.CDLL) -> None:
     lib.lapgnn_two_min.restype = _I
-    lib.lapgnn_two_min.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
+    lib.lapgnn_two_min.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP,
+    ]
 
 
 KERNEL_LIBS: Dict[str, SharedLibrary] = {

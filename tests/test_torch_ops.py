@@ -23,13 +23,14 @@ from lapgnn_tpu_torch.ops import dual as tdual
 from lapgnn_tpu_torch.ops import features as tfeat
 from lapgnn_tpu_torch.ops import rank1 as trank1
 from lapgnn_tpu_torch.ops import sinkhorn as tsink
-from lapgnn_tpu_torch.ops.cuda import WRAPPERS, col_min, min_trick, row_features_stats
+from lapgnn_tpu_torch.ops.cuda import WRAPPERS, col_min, min_trick, row_features_stats, two_min
 from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
 from lapgnn_tpu_torch.ops.cuda.features import (
     _from_key,
     _to_key,
     row_features_stats_plain,
 )
+from lapgnn_tpu_torch.ops.cuda.twomin import two_min_plain
 from lapgnn_tpu_torch.ops.sentinels import clip_cost_sentinels as t_clip
 
 KERNEL_FAMS = ["uniform", "noisy_linear", "tie", "sparse", "metric"]
@@ -327,7 +328,7 @@ def test_uniq_argmin_and_veto_match_jax():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [257, 1024])
+@pytest.mark.parametrize("n", [7, 33, 257, 1001, 1024])
 def test_kernels_match_plain_versions_on_card(cuda, n):
     C = np.stack([_cost("uniform", n, 19), _cost("tie", n, 20)])
     u = np.random.default_rng(21).normal(0, 0.3, (2, n)).astype(np.float32)
@@ -338,6 +339,8 @@ def test_kernels_match_plain_versions_on_card(cuda, n):
     want = row_features_stats_plain(Cd, col_min_plain(Cd))
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=K3_RTOL, atol=K3_ATOL)
+    k4, p4 = two_min(Cd, ud), two_min_plain(Cd, ud)
+    assert all(torch.equal(a, b) for a, b in zip(k4, p4))
 
 
 @pytest.mark.cuda

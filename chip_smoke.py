@@ -9,10 +9,17 @@ prints no ``ok`` line; with no arguments every phase runs.
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
      (one ``nvcc`` per ``csrc/*.cu``) and the native host solver (``g++``),
-     built together from the checkout into ``build/``.
+     built together from the checkout into ``build/``; each kernel's
+     registers and spills (a spill fails the phase), and how many of K1 /
+     K2's thread block clusters the card holds at once (none fails it).
   2. Kernels against their plain PyTorch versions at n = 1000, 2048 and 8192
      on a (uniform, tie) batch of two: K1 column min, K2 min-trick and K4
-     two-min must match bit for bit (K4 also on rows with +-inf and NaN),
+     two-min must match bit for bit (K4 also on rows with +-inf and NaN; K1
+     and K2 on every path and geometry they can take, also on columns with
+     NaN, +-inf, equal values, a NaN in u, and mixed +-0.0, where the sign of
+     a zero minimum is free and the values must compare equal; again at
+     ragged and rectangular shapes down to one row or one column, batches of
+     2 and 5, and a batch whose offsets pass 2^31),
      K3 row-feature statistics within rtol 2e-5 / atol 2e-6 with its
      selection channels (min, max, MAD, second-best gap, near-best,
      is-col-best) bit-equal, also on all-equal rows, rows of mixed +-0.0 and
@@ -45,7 +52,12 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      CUDA-event timings, all reps queued behind a spin kernel so the host's
      launch latency stays out of the event windows, L2 flushed before each
      launch.  At n = 2048 the kernels are also timed with a loop that
-     synchronises before every rep, for comparison.
+     synchronises before every rep, for comparison.  K1, K2 and K4 are read
+     in four states (L2 flushed by ``zero_``, flushed by a read, C left in
+     L2, device time a launch under torch.profiler) beside ``torch.amin``
+     over the same matrix, K1 and K2 on every path and geometry, also at
+     n = 4096 and on narrow matrices; at n = 2048 a call of K1 or K2 must be
+     one kernel.
 
 Output: a JSON line per phase, then the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -172,7 +184,29 @@ def phase_build(torch, strict=True):
     if spills and strict:
         raise AssertionError(f"kernels spill registers: {spills}")
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
-           "per_library_seconds": seconds})
+           "per_library_seconds": seconds,
+           "colmin_max_active_clusters": _colmin_cluster_occupancy(strict)})
+
+
+def _colmin_cluster_occupancy(strict):
+    """How many clusters of K1 / K2 the card holds at once, for the main
+    path's geometry and the largest the geometry picks at other sizes; 0
+    would mean a launch refused at run time."""
+    from lapgnn_tpu_torch.ops.cuda._lib import KERNEL_LIBS
+    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_geometry
+
+    lib = KERNEL_LIBS["colmin"].load()
+    g = col_min_geometry(N_E2E, N_E2E, True)
+    out = {}
+    for cluster, ahead in sorted({(g.cluster, g.ahead), (8, 4), (8, 8), (4, 4)}):
+        for has_u in (0, 1):
+            got = lib.lapgnn_colmin_max_active_clusters(has_u, 1, ahead, cluster, g.warps)
+            out[f"cluster{cluster}_ahead{ahead}_{'k2' if has_u else 'k1'}"] = got
+            if got <= 0 and strict:
+                raise AssertionError(
+                    f"no cluster of {cluster} x {g.warps} warps fits the card ({got})")
+    print(f"colmin cluster path at n = {N_E2E}: {g}")
+    return out
 
 
 def _batch(torch, n, seed, fams=("uniform", "tie")):
@@ -270,15 +304,104 @@ def _nan_inf_rows(torch, C):
     return S
 
 
+# Every geometry K1 / K2 pick or can be forced to (``col_min_geometry``).
+COLMIN_FORCED = (
+    {}, {"path": "two_launch"}, {"path": "cluster"}, {"path": "cluster", "ahead": 4},
+    {"path": "cluster", "ahead": 8}, {"path": "cluster", "cluster": 1},
+    {"path": "cluster", "cluster": 2, "ahead": 8}, {"path": "cluster", "cluster": 4},
+    {"path": "cluster", "cluster": 8, "ahead": 4},
+)
+# (rows, m) for K1 / K2 beside RAGGED_SHAPES: few rows, few columns, one row,
+# one column, and rows that leave the last blocks of a cluster short or empty.
+COLMIN_SHAPES = ((7, 16384), (16384, 7), (1, 5000), (3000, 1), (1001, 2048), (100, 4096))
+
+
+def _check_col_min(torch, C, u, what, forced=COLMIN_FORCED):
+    """K1 on C and K2 on (C, u), on every geometry of ``forced``, against
+    the plain versions: the same NaN pattern, bit-equal elsewhere, except
+    that a zero minimum of a column holding both -0.0 and +0.0 need only
+    compare equal.  Returns the largest absolute differences, and how many
+    such zeros were compared and how many came out with the other sign."""
+    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_kernel, col_min_plain, min_trick_plain
+
+    errs, mixed_zeros, other_sign = {}, 0, 0
+    for name, uu in (("col_min", None), ("min_trick", u)):
+        X = C if uu is None else C - uu[..., :, None]
+        want = col_min_plain(C) if uu is None else min_trick_plain(C, uu)
+        zero, neg = X == 0, torch.signbit(X)
+        mixed = (zero & neg).any(-2) & (zero & ~neg).any(-2) & (want == 0)
+        del X, zero, neg
+        nan = torch.isnan(want)
+        exact = ~nan & ~mixed
+        fin = torch.isfinite(want)
+        errs[name] = 0.0
+        for force in forced:
+            got = col_min_kernel(C, uu, **force)
+            torch.cuda.synchronize()
+            if not torch.equal(torch.isnan(got), nan):
+                raise AssertionError(f"{name} NaN pattern differs ({what}, {force})")
+            if not torch.equal(got[exact].view(torch.int32), want[exact].view(torch.int32)):
+                raise AssertionError(f"{name} differs from its plain version ({what}, {force})")
+            if not bool((got[mixed] == 0).all()):
+                raise AssertionError(f"{name} mixed-zero minimum is not zero ({what}, {force})")
+            mixed_zeros += int(mixed.sum())
+            other_sign += int((torch.signbit(got[mixed]) != torch.signbit(want[mixed])).sum())
+            if fin.any():
+                errs[name] = max(errs[name], float((got[fin] - want[fin]).abs().max()))
+    return errs, mixed_zeros, other_sign
+
+
+def _colmin_special_inputs(torch, C, u):
+    """Copies of a (B, n, m) batch and its (B, n) u that try K1 / K2's merge
+    levels: columns with a NaN, all +inf, a -inf, all equal; a NaN in u
+    (every column of that matrix NaN); and columns whose minimum is a zero
+    of both signs, for K1 in C itself and for K2 through C == u, in either
+    order of the signs.  Indices wrap, so any shape takes them."""
+    B, n, m = C.shape
+    V = C.clone()
+    V[0, n // 2, 0] = float("nan")
+    V[0, :, 1 % m] = float("inf")
+    V[-1, n - 1, 2 % m] = float("-inf")
+    V[-1, :, 3 % m] = 0.25
+    V[0, 0, 4 % m] = float("inf")
+    nan_u = u.clone()
+    nan_u[0, n // 3] = float("nan")
+    Z, zu = C.clone(), u.clone()
+    j1, j2 = 5 % m, 6 % m
+    Z[..., j1] = 1.0  # K1: zeros of both signs under ones
+    for b in range(B):
+        plus, minus = (0, n - 1) if b % 2 == 0 else (n - 1, 0)
+        zu[b, minus] = 0.0
+        Z[b, :, j2] = zu[b] + 1.0  # K2: C - u is about 1 ...
+        Z[b, plus, j2] = zu[b, plus]  # ... but +0.0 where C == u
+        Z[b, minus, j2] = -0.0  # ... and -0.0 - 0.0 = -0.0
+        Z[b, plus, j1], Z[b, minus, j1] = 0.0, -0.0
+    return {"special values": (V, u), "NaN in u": (C, nan_u), "mixed zeros": (Z, zu)}
+
+
 def phase_compare(torch, seed):
     from lapgnn_tpu_torch.ops import features
     from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, two_min
-    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
+    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_geometry, col_min_plain, min_trick_plain
     from lapgnn_tpu_torch.ops.cuda.features import row_features_geometry
     from lapgnn_tpu_torch.ops.cuda.twomin import two_min_geometry, two_min_kernel, two_min_plain
 
     errs = {name: 0.0 for name in KERNELS}
     detail = []
+    zero_signs = {"mixed_zero_minima": 0, "other_sign_than_amin": 0}
+    gc = torch.Generator(device="cuda").manual_seed(seed + 29)  # K1 / K2's own draws
+
+    def hold_col_min(C, u, what, forced=COLMIN_FORCED, special=True):
+        inputs = {"as drawn": (C, u)}
+        if special:
+            inputs.update(_colmin_special_inputs(torch, C, u))
+        for label, (Cs, us) in inputs.items():
+            e, mixed, other = _check_col_min(torch, Cs, us, f"{label}, {what}", forced)
+            for name in e:
+                errs[name] = max(errs[name], e[name])
+            zero_signs["mixed_zero_minima"] += mixed
+            zero_signs["other_sign_than_amin"] += other
+
     for n in COMPARE_SIZES:
         C = _batch(torch, n, seed + n)
         g = torch.Generator(device="cuda").manual_seed(seed + n)
@@ -295,6 +418,7 @@ def phase_compare(torch, seed):
         _check_k3(torch, _special_rows(torch, C), f"special rows, n={n}")
         errs["col_min"] = max(errs["col_min"], float((k1 - p1).abs().max()))
         errs["min_trick"] = max(errs["min_trick"], float((k2 - p2).abs().max()))
+        hold_col_min(C, u, f"n={n}")
         errs["row_features_stats"] = max(errs["row_features_stats"], e3)
         v = torch.randn((2, n), generator=g, device="cuda") * 0.3
         errs["two_min"] = max(errs["two_min"], _check_two_min(
@@ -326,10 +450,30 @@ def phase_compare(torch, seed):
         if m >= 7:
             S = _nan_inf_rows(torch, C)
             _check_two_min(torch, two_min(S, v), two_min_plain(S, v), f"inf/NaN rows, {what}")
+        hold_col_min(C, torch.randn((2, rows), generator=gc, device="cuda") * 0.3, what)
         ragged.append({"rows": rows, "m": m, "k3_max_abs_err": e3,
                        "k3_path": row_features_geometry(m, True).path,
                        "k3_warps_per_row": row_features_geometry(m, True).warps_per_row,
-                       "k4_vector_loads": two_min_geometry(rows, m, True, batch=2).vector})
+                       "k4_vector_loads": two_min_geometry(rows, m, True, batch=2).vector,
+                       "k1_k2_path": col_min_geometry(rows, m, True, batch=2).path})
+
+    # K1 / K2 at rectangular shapes, batch 2, then batch 5, then a batch whose
+    # element offsets pass 2^31 (8 x 16384 x 16384, default paths only).
+    colmin_shapes = []
+    for batch, shapes in ((2, COLMIN_SHAPES), (5, ((257, 1001), (N_E2E, N_E2E)))):
+        for rows, m in shapes:
+            C = torch.rand((batch, rows, m), generator=gc, device="cuda")
+            C[-1] = torch.floor(C[-1] * 8.0) / 8.0
+            u = torch.randn((batch, rows), generator=gc, device="cuda") * 0.3
+            hold_col_min(C, u, f"batch={batch}, rows={rows}, m={m}")
+            geo = col_min_geometry(rows, m, True, batch=batch)
+            colmin_shapes.append({"batch": batch, "rows": rows, "m": m, "path": geo.path,
+                                  "cluster": geo.cluster, "rows_per_block": geo.rows_per_block})
+    C = torch.rand((8, 16384, 16384), generator=gc, device="cuda")
+    u = torch.randn((8, 16384), generator=gc, device="cuda") * 0.3
+    hold_col_min(C, u, "batch=8, n=16384", forced=({}, {"path": "two_launch"}), special=False)
+    del C, u
+    torch.cuda.empty_cache()
 
     # A view that starts 4 bytes into its buffer: contiguous, not 16-byte aligned.
     n = COMPARE_SIZES[0]
@@ -345,10 +489,14 @@ def phase_compare(torch, seed):
     errs["row_features_stats"] = max(errs["row_features_stats"], e3)
     errs["two_min"] = max(errs["two_min"], _check_two_min(
         torch, two_min(Cu, vu), two_min_plain(Cu, vu), "unaligned view"))
+    if col_min_geometry(n, n, Cu.data_ptr() % 16 == 0, batch=2, path="cluster").vector:
+        raise AssertionError("the unaligned view would take 16-byte loads")
+    hold_col_min(Cu, vu, "unaligned view")
     _check_two_min(torch, two_min(_nan_inf_rows(torch, Cu), vu),
                    two_min_plain(_nan_inf_rows(torch, Cu), vu), "inf/NaN rows, unaligned view")
 
     _emit({"phase": "compare", "max_abs_err": errs, "detail": detail, "ragged": ragged,
+           "k1_k2_shapes": colmin_shapes, "k1_k2_mixed_zero_signs": zero_signs,
            "unaligned_view": {"n": n, "k3_max_abs_err": e3}})
     return errs
 
@@ -634,13 +782,105 @@ def _time_ms(torch, fn, reps, flush, queued=True, flush_by_read=False):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def _device_us_per_launch(torch, fn, reps=20):
-    """Device time of ``fn``'s kernels per call, from torch.profiler, with
-    the data left in L2 between calls; None where the profiler saw none."""
+def _device_launch_profile(torch, fn, reps=20):
+    """Device time (us) and number of ``fn``'s kernels per call, from
+    torch.profiler, with the data left in L2 between calls; (None, None)
+    where the profiler saw none.  The profiler now and then loses a few
+    kernel events: a trace in which a kernel's count is no multiple of the
+    calls is taken again, up to four times, and the last is kept as it is."""
     for _ in range(3):
         fn()
-    rows, _ = _profile(torch, lambda: [fn() for _ in range(reps)])
-    return sum(r[0] for r in rows) / reps if rows else None
+    rows = []
+    for _ in range(4):
+        rows, _ = _profile(torch, lambda: [fn() for _ in range(reps)])
+        if rows and all(r[2] % reps == 0 for r in rows):
+            break
+    if not rows:
+        return None, None
+    # by kernel name: its mean time, times how often a call launches it
+    per_call = [max(1, round(r[2] / reps)) for r in rows]
+    return sum(r[0] / r[2] * k for r, k in zip(rows, per_call)), sum(per_call)
+
+
+def _four_states(torch, fn, reps, flush, no_flush):
+    """``fn`` timed in the four states a kernel is read in: L2 flushed by
+    ``zero_`` (dirty lines), flushed by a read (clean lines), its data left
+    in L2 (both by events), and device time a call under torch.profiler."""
+    us, kernels = _device_launch_profile(torch, fn)
+    return {
+        "ms": _time_ms(torch, fn, reps, flush),
+        "ms_read_flush": _time_ms(torch, fn, reps, flush, flush_by_read=True),
+        "ms_l2_resident": _time_ms(torch, fn, reps, no_flush),
+        "device_us_per_launch_l2_resident": us,
+        "kernels_per_call": kernels,
+    }
+
+
+# K1 / K2's geometries timed side by side; two_launch is the earlier kernel,
+# read first and last.
+COLMIN_VARIANTS = {
+    "two_launch": {"path": "two_launch"},
+    "cluster_ahead4": {"path": "cluster", "ahead": 4},
+    "cluster_ahead8": {"path": "cluster", "ahead": 8},
+    "cluster_of_2": {"path": "cluster", "cluster": 2},
+    "cluster_of_4": {"path": "cluster", "cluster": 4},
+    "cluster_of_8": {"path": "cluster", "cluster": 8},
+    "two_launch_again": {"path": "two_launch"},
+}
+
+
+# (rows, m) on either side of the width below which K1 / K2 take two_launch.
+COLMIN_NARROW_SHAPES = ((512, 512), (4096, 256), (8192, 1024), (8192, 2048), (16384, 7),
+                        (16384, 128), (16384, 512), (16384, 2048), (32768, 256),
+                        (32768, 1024), (65536, 64), (65536, 512))
+
+
+def _col_min_narrow(torch, reps, flush, no_flush, seed):
+    """K2 on narrow matrices, both paths, cold and with C left in L2: what
+    ``col_min_geometry``'s choice of path rests on."""
+    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_geometry, col_min_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    out = []
+    for rows, m in COLMIN_NARROW_SHAPES:
+        C = torch.rand((1, rows, m), generator=g, device="cuda")
+        u = torch.randn((1, rows), generator=g, device="cuda") * 0.3
+        row = {"rows": rows, "m": m, "picked": col_min_geometry(rows, m, True).path}
+        for path in ("two_launch", "cluster"):
+            fn = lambda: col_min_kernel(C, u, path=path)  # noqa: E731
+            row[path] = {"ms": _time_ms(torch, fn, reps, flush),
+                         "ms_l2_resident": _time_ms(torch, fn, reps, no_flush)}
+        out.append(row)
+    return out
+
+
+def _col_min_states(torch, C, u, reps, flush, no_flush):
+    """K1 and K2 at this size: the wrapper as the main path calls it in the
+    four states, every variant in the same states, and ``torch.amin`` over
+    the same matrix (one read of C: K1's library call, and the yardstick of
+    K2, which has none of its own)."""
+    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick
+    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_geometry, col_min_kernel
+
+    B, n, m = C.shape
+    amin = _four_states(torch, lambda: torch.amin(C, dim=-2), reps, flush, no_flush)
+    geometry = col_min_geometry(n, m, C.data_ptr() % 16 == 0, batch=B)
+    out = {}
+    for name, kern, uu in (("col_min", lambda: col_min(C), None),
+                           ("min_trick", lambda: min_trick(C, u), u)):
+        row = _four_states(torch, kern, reps, flush, no_flush)
+        row["geometry"] = {"path": geometry.path, "cluster": geometry.cluster,
+                           "warps": geometry.warps, "ahead": geometry.ahead,
+                           "rows_per_block": geometry.rows_per_block,
+                           "blocks": geometry.blocks, "vector": geometry.vector}
+        row["variants_ms"] = {
+            label: _four_states(torch, lambda: col_min_kernel(C, uu, **force),
+                                reps, flush, no_flush)
+            for label, force in COLMIN_VARIANTS.items()
+        }
+        row["amin_over_columns"] = amin
+        out[name] = row
+    return out
 
 
 def _two_min_yardsticks(torch, C, v, reps, flush, no_flush):
@@ -658,11 +898,11 @@ def _two_min_yardsticks(torch, C, v, reps, flush, no_flush):
     return {
         "event_floor_ms": _time_ms(torch, lambda: two_min(tiny_C, tiny_v), reps, no_flush),
         "ms_read_flush": _time_ms(torch, kern, reps, flush, flush_by_read=True),
-        "device_us_per_launch_l2_resident": _device_us_per_launch(torch, kern),
+        "device_us_per_launch_l2_resident": _device_launch_profile(torch, kern)[0],
         "row_amin_ms": _time_ms(torch, amin, reps, flush),
         "row_amin_ms_l2_resident": _time_ms(torch, amin, reps, no_flush),
         "row_amin_ms_read_flush": _time_ms(torch, amin, reps, flush, flush_by_read=True),
-        "row_amin_device_us_per_launch_l2_resident": _device_us_per_launch(torch, amin),
+        "row_amin_device_us_per_launch_l2_resident": _device_launch_profile(torch, amin)[0],
     }
 
 
@@ -691,6 +931,17 @@ def phase_times(torch, seed):
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
     no_flush = torch.empty(1, dtype=torch.float32, device="cuda")
     out = {}
+
+    def base_row(name, n, kern, plain, lib, reps):
+        bound, by = _bound_ms(name, 1, n, n)
+        return {
+            "ms": _time_ms(torch, kern, reps, flush),
+            "plain_ms": _time_ms(torch, plain, max(3, reps // 4), flush),
+            "library_ms": None if lib is None else _time_ms(torch, lib, reps, flush),
+            "bound_ms": bound,
+            "bound_by": by,
+        }
+
     for n in (2048, 8192):
         C = _batch(torch, n, seed + 7 * n, fams=("uniform",))
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -709,17 +960,12 @@ def phase_times(torch, seed):
             "two_min": (lambda: two_min(C, v), lambda: two_min_plain(C, v), None),
         }
         for name, (kern, plain, lib) in fns.items():
-            bound, by = _bound_ms(name, 1, n, n)
-            row = {
-                "ms": _time_ms(torch, kern, reps, flush),
-                "plain_ms": _time_ms(torch, plain, max(3, reps // 4), flush),
-                "library_ms": None if lib is None else _time_ms(torch, lib, reps, flush),
-                "bound_ms": bound,
-                "bound_by": by,
-            }
+            row = base_row(name, n, kern, plain, lib, reps)
             if n == N_E2E:
                 row["ms_synced_loop"] = _time_ms(torch, kern, reps, flush, queued=False)
             out.setdefault(name, {})[n] = row
+        for name, states in _col_min_states(torch, C, u, reps, flush, no_flush).items():
+            out[name][n].update(states)
 
         # K3 without K1 inside, on either path.
         k3 = out["row_features_stats"][n]
@@ -737,7 +983,20 @@ def phase_times(torch, seed):
     C = _batch(torch, n, seed + 7 * n, fams=("uniform",))
     v = torch.randn((1, n), device="cuda", generator=g) * 0.3
     out["two_min"][n] = {"variants_ms": _two_min_variants(torch, C, v, 10, flush, no_flush)}
-    _emit({"phase": "times", "batch": 1, "kernels": out})
+    # K1 / K2 between the L2-resident size and the streaming one.
+    u = torch.randn((1, n), device="cuda", generator=g) * 0.3
+    out["col_min"][n] = base_row("col_min", n, lambda: col_min(C), lambda: col_min_plain(C),
+                                 lambda: torch.amin(C, dim=-2), 10)
+    out["min_trick"][n] = base_row("min_trick", n, lambda: min_trick(C, u),
+                                   lambda: min_trick_plain(C, u), None, 10)
+    for name, states in _col_min_states(torch, C, u, 10, flush, no_flush).items():
+        out[name][n].update(states)
+    _emit({"phase": "times", "batch": 1, "kernels": out,
+           "min_trick_narrow_shapes": _col_min_narrow(torch, 10, flush, no_flush, seed)})
+    for name in ("col_min", "min_trick"):
+        per_call = out[name][N_E2E]["kernels_per_call"]
+        if per_call is not None and per_call != 1:
+            raise AssertionError(f"{name} at n={N_E2E} is {per_call} kernels a call, not one")
     return out
 
 
@@ -857,6 +1116,7 @@ def main() -> int:
             "n": N_E2E,
             **t[N_E2E],
             "at_n_8192": t[8192],
+            "at_n_4096": t.get(4096),
             "card": card,
         })
     _emit({"kernels": kernels})

@@ -44,6 +44,12 @@ _I = ctypes.c_int
 def _bind_colmin(lib: ctypes.CDLL) -> None:
     lib.lapgnn_colmin.restype = _I
     lib.lapgnn_colmin.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP]
+    lib.lapgnn_colmin_cluster.restype = _I
+    lib.lapgnn_colmin_cluster.argtypes = [
+        _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP,
+    ]
+    lib.lapgnn_colmin_max_active_clusters.restype = _I
+    lib.lapgnn_colmin_max_active_clusters.argtypes = [_I, _I, _I, _I, _I]
 
 
 def _bind_features(lib: ctypes.CDLL) -> None:

@@ -1,11 +1,12 @@
-"""Launch geometry and selection arithmetic of the port's K3 and K4 kernels.
+"""Launch geometry and arithmetic of the port's K1 / K2, K3 and K4 kernels.
 
 The CUDA sources only compile on a card, so what can be held here is what
 surrounds them: the geometry each wrapper hands to its kernel (which path a
 row length and an alignment take, threads, shared memory), and plain torch
 transcriptions of the kernels' own arithmetic (K3: two ranks selected in the
 same 32 bisection steps over an index-masked padded tile, counted by carries;
-K4: integer order keys and the two smallest (key, column) pairs) against the
+K4: integer order keys and the two smallest (key, column) pairs; K1 / K2: the
+merge tree of stripes, warps and cluster ranks under ``nan_min``) against the
 plain versions the kernels are compared with on the card.  Tests marked
 ``cuda`` run the kernels at the ragged shapes and skip without a card.
 """
@@ -17,7 +18,16 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from lapgnn_tpu_torch.ops.cuda import row_features_stats, two_min
-from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain
+from lapgnn_tpu_torch.ops.cuda.colmin import (
+    LONG_STRIPE,
+    MAX_BLOCKS,
+    SMS,
+    col_min_by_tiles,
+    col_min_geometry,
+    col_min_kernel,
+    col_min_plain,
+    min_trick_plain,
+)
 from lapgnn_tpu_torch.ops.cuda.features import (
     H100_SHARED_BYTES_PER_BLOCK,
     _kth_key,
@@ -328,6 +338,212 @@ def test_two_min_by_keys_property(values):
     _assert_two_min_equal(two_min_by_keys(C, v), two_min_plain(C, v), zero_sign=False)
 
 
+# ---------------------------------------------------------------- K1 / K2 geometry
+
+COLMIN_FORCED = (
+    {}, {"path": "two_launch"}, {"path": "cluster"}, {"path": "cluster", "ahead": 4},
+    {"path": "cluster", "ahead": 8}, {"path": "cluster", "cluster": 1},
+    {"path": "cluster", "cluster": 2, "ahead": 8}, {"path": "cluster", "cluster": 4},
+    {"path": "cluster", "cluster": 8, "ahead": 4},
+)
+
+
+def _assert_col_min_geometry(g, n, m, batch, aligned):
+    """Every row and every column is covered exactly once, the cluster
+    divides the grid, and the launch is within the card's limits."""
+    assert g.path in ("cluster", "two_launch")
+    tiles = -(-m // g.tile)
+    assert (tiles - 1) * g.tile < m <= tiles * g.tile
+    # the blocks of a tile own consecutive row ranges that end at or past n
+    assert g.row_blocks * g.rows_per_block >= n and g.rows_per_block >= 1
+    assert g.smem_bytes <= H100_SHARED_BYTES_PER_BLOCK
+    assert 32 * g.warps <= MAX_THREADS
+    assert g.grid[0] < 2**31 and g.grid[1] <= 65535 and g.grid[2] <= 65535
+    assert g.blocks == g.grid[0] * g.grid[1] * g.grid[2]
+    if g.path == "cluster":
+        assert g.tile == 128 and g.row_blocks == g.cluster
+        assert g.cluster in (1, 2, 4, 8) and g.grid[0] % g.cluster == 0
+        assert g.grid == (tiles * g.cluster, 1, batch)
+        assert g.rows_per_block % g.warps == 0  # whole stripes: a row a warp a step
+        assert g.vector == (aligned and m % 4 == 0)
+        assert g.ahead in (4, 8) and g.warps == 8
+        assert g.smem_bytes == (g.warps + 1) * g.tile * 4
+    else:
+        assert g.cluster == 1 and not g.vector and g.tile == 32 * g.warps
+        assert g.grid == (tiles, g.row_blocks, batch)
+        assert (g.row_blocks - 1) * g.rows_per_block < n  # no empty chunk
+        assert g.smem_bytes == 0
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8])
+def test_col_min_geometry_every_m_covers_the_matrix(batch):
+    for m in range(1, 65537):
+        aligned = m % 2 == 0
+        for n in (1, 2048) if m % 64 else (1, 37, 2048, 65536):
+            _assert_col_min_geometry(col_min_geometry(n, m, aligned, batch), n, m, batch,
+                                     aligned)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8])
+def test_col_min_geometry_every_n_covers_the_matrix(batch):
+    for n in range(1, 65537):
+        for m in (7, 2048) if n % 64 else (1, 7, 1001, 2048, 65536):
+            _assert_col_min_geometry(col_min_geometry(n, m, True, batch), n, m, batch, True)
+
+
+@pytest.mark.parametrize("force", COLMIN_FORCED[1:], ids=lambda f: "-".join(map(str, f.values())))
+@pytest.mark.parametrize("n,m", [(1, 1), (37, 7), (1001, 2048), (16384, 7), (7, 16384),
+                                 (2048, 2048), (65536, 65536)])
+def test_col_min_geometry_forced_variants_cover_the_matrix(n, m, force):
+    g = col_min_geometry(n, m, True, batch=2, **force)
+    _assert_col_min_geometry(g, n, m, 2, True)
+    for key, value in force.items():
+        assert getattr(g, key) == value
+
+
+def test_col_min_geometry_by_shape():
+    """What the main path and its neighbours take: one launch, every cluster
+    resident at once, two_launch only for a tall, narrow matrix."""
+    main = col_min_geometry(2048, 2048, True)
+    assert (main.path, main.cluster, main.warps, main.ahead) == ("cluster", 8, 8, 8)
+    assert main.rows_per_block == 256 and main.blocks == 128 and main.vector
+    assert col_min_geometry(4096, 4096, True).ahead == 4  # beyond L2
+    for n in (256, 1024, 4096, 8192, 16384, 32768):
+        g = col_min_geometry(n, n, True)
+        assert g.path == "cluster" and g.blocks <= MAX_BLOCKS
+    assert col_min_geometry(8192, 8192, True).cluster == 4
+    assert col_min_geometry(2048, 2048, True, batch=8).cluster == 2
+    assert col_min_geometry(7, 16384, True).cluster == 1  # nothing to split
+    assert col_min_geometry(16384, 512, True).path == "cluster"  # 256 rows a warp
+    for n, m in ((32768, 7), (32768, 1024), (65536, 64), (65536, 2048)):
+        g = col_min_geometry(n, m, True)
+        assert g.path == "two_launch" and g.blocks >= SMS
+        c = col_min_geometry(n, m, True, path="cluster")
+        assert c.rows_per_block // c.warps >= LONG_STRIPE and c.blocks <= SMS
+    assert not col_min_geometry(2048, 2048, False).vector
+    assert not col_min_geometry(2048, 2046, True).vector
+
+
+def test_col_min_geometry_rejects_what_the_kernel_does_not_take():
+    for bad in ({"path": "tile"}, {"cluster": 3}, {"cluster": 16}, {"ahead": 1},
+                {"ahead": 2}, {"path": "two_launch", "ahead": 4},
+                {"path": "two_launch", "cluster": 2}):
+        with pytest.raises(ValueError):
+            col_min_geometry(64, 64, True, **bad)
+    with pytest.raises(ValueError):
+        col_min_geometry(0, 8, True)
+    with pytest.raises(ValueError):
+        col_min_geometry(8, 8, True, batch=0)
+
+
+# ---------------------------------------------------------------- K1 / K2 merge tree
+
+
+def _assert_col_min_equal(got, want, X):
+    """Same NaN pattern, bit-equal elsewhere, except that a zero minimum of a
+    column holding both -0.0 and +0.0 need only compare equal: which sign
+    wins is the merge order's."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    zero, neg = X == 0, torch.signbit(X)
+    mixed = (zero & neg).any(-2) & (zero & ~neg).any(-2) & (want == 0)
+    exact = ~torch.isnan(want) & ~mixed
+    assert torch.equal(_bits(got[exact]), _bits(want[exact]))
+    assert bool((got[mixed] == 0).all())
+
+
+def _check_by_tiles(C, u, force, batch=None):
+    n, m = C.shape[-2:]
+    g = col_min_geometry(n, m, False, batch=C.shape[0] if C.ndim == 3 else 1, **force)
+    _assert_col_min_equal(col_min_by_tiles(C, None, g), col_min_plain(C), C)
+    _assert_col_min_equal(col_min_by_tiles(C, u, g), min_trick_plain(C, u),
+                          C - u[..., :, None])
+
+
+def _colmin_special(n, m, seed):
+    """A (2, n, m) batch and its u with a NaN column, an all +inf column, a
+    -inf, an all-equal column, and columns whose minimum is a zero of both
+    signs (in C for K1, through C == u for K2), in either order of the
+    signs; indices wrap."""
+    rng = np.random.default_rng(seed)
+    C = torch.from_numpy(rng.uniform(0, 1, (2, n, m)).astype(np.float32))
+    C[1] = torch.floor(C[1] * 4) / 4
+    u = torch.from_numpy(rng.normal(0, 0.3, (2, n)).astype(np.float32))
+    C[0, n // 2, 0] = float("nan")
+    C[0, :, 1 % m] = float("inf")
+    C[1, n - 1, 2 % m] = float("-inf")
+    C[1, :, 3 % m] = 0.25
+    j1, j2 = 5 % m, 6 % m
+    C[..., j1] = 1.0
+    for b in range(2):
+        plus, minus = (0, n - 1) if b == 0 else (n - 1, 0)
+        u[b, minus] = 0.0
+        C[b, :, j2] = u[b] + 1.0
+        C[b, plus, j2] = u[b, plus]
+        C[b, minus, j2] = -0.0
+        C[b, plus, j1], C[b, minus, j1] = 0.0, -0.0
+    return C, u
+
+
+@pytest.mark.parametrize("force", COLMIN_FORCED, ids=lambda f: "-".join(map(str, f.values())) or "picked")
+@pytest.mark.parametrize("n,m", [(1, 1), (1, 130), (37, 7), (37, 33), (50, 129), (129, 300),
+                                 (300, 1)])
+def test_col_min_by_tiles_equals_plain(n, m, force):
+    """The kernel's merge tree (stripes, warps, cluster ranks; chunks on the
+    two_launch path) gives the plain versions' minima on ragged shapes, with
+    blocks of a cluster short or empty, NaN and +-inf columns, and mixed
+    zeros under the stated rule."""
+    C, u = _colmin_special(n, m, seed=n * m)
+    _check_by_tiles(C, u, force)
+
+
+def test_col_min_by_tiles_nan_in_u_makes_every_column_nan():
+    C, u = _colmin_special(40, 130, seed=3)
+    u[0, 13] = float("nan")
+    for force in COLMIN_FORCED:
+        g = col_min_geometry(40, 130, False, batch=2, **force)
+        got = col_min_by_tiles(C, u, g)
+        assert bool(torch.isnan(got[0]).all())
+        _assert_col_min_equal(got, min_trick_plain(C, u), C - u[..., :, None])
+
+
+def test_col_min_by_tiles_keeps_the_first_zero_of_its_own_order():
+    """Rows 1 and 8 of a (16, 1) column hold +0.0 and -0.0.  With two blocks
+    of eight rows, row 1 is warp 1's of rank 0 and row 8 is warp 0's of rank
+    1: ranks merge before warps of another block count, so rank 0's +0.0
+    stays.  Swapped, the -0.0 stays.  Either equals the plain minimum."""
+    g = col_min_geometry(16, 1, False, path="cluster", cluster=2)
+    assert g.rows_per_block == 8 and g.warps == 8
+    C = torch.ones(16, 1)
+    C[1, 0], C[8, 0] = 0.0, -0.0
+    got = col_min_by_tiles(C, None, g)
+    assert got.item() == 0.0 and not bool(torch.signbit(got).item())
+    C[1, 0], C[8, 0] = -0.0, 0.0
+    got = col_min_by_tiles(C, None, g)
+    assert got.item() == 0.0 and bool(torch.signbit(got).item())
+    assert col_min_plain(C).item() == 0.0
+
+
+_COLMIN_POOL = [0.0, -0.0, 0.0, -0.0, 0.25, 0.5, 1.0, float("inf"), float("-inf"),
+                float("nan")]
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 40), st.integers(1, 9),
+       st.lists(st.one_of(st.sampled_from(_COLMIN_POOL),
+                          st.floats(min_value=-4, max_value=4, width=32)),
+                min_size=1, max_size=360),
+       st.sampled_from(COLMIN_FORCED), st.booleans())
+def test_col_min_by_tiles_property(n, m, values, force, zero_u):
+    """Any values, NaN, +-inf and +-0.0 among them, any ragged shape, any
+    geometry: the merge tree equals the plain versions under the rule."""
+    C = torch.tensor((values * (n * m // len(values) + 1))[:n * m],
+                     dtype=torch.float32).reshape(n, m)
+    # u from the matrix itself, so that C - u has exact zeros of both signs
+    u = torch.zeros(n) if zero_u else C[:, 0].clone()
+    u[torch.isinf(u)] = 0.5
+    _check_by_tiles(C, u, force)
+
+
 # ---------------------------------------------------------------- on the card
 
 RAGGED = [(37, 1), (37, 7), (37, 10), (37, 11), (37, 33), (50, 1001), (40, 16384),
@@ -354,6 +570,39 @@ def test_k3_k4_match_plain_versions_at_ragged_shapes_on_card(cuda, rows, m):
     for ch in K3_EXACT_CHANNELS:
         assert torch.equal(_bits(got[..., ch]), _bits(want[..., ch]))
     _assert_two_min_equal(two_min(C, v), two_min_plain(C, v))
+
+
+COLMIN_ON_CARD = RAGGED + [(7, 16384), (16384, 7), (1, 5000), (3000, 1), (1001, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,m", COLMIN_ON_CARD)
+def test_k1_k2_match_plain_versions_at_ragged_shapes_on_card(cuda, rows, m):
+    """Every geometry of the kernel against the plain versions, on the drawn
+    batch and on the special columns."""
+    drawn, _ = _ragged_batch(rows, m, "cpu")
+    u = torch.from_numpy(np.random.default_rng(rows + m).normal(0, 0.3, (2, rows))
+                         .astype(np.float32))
+    for C, uu in ((drawn, u), _colmin_special(rows, m, seed=rows + m)):
+        C, uu = C.to(cuda), uu.to(cuda)
+        for force in COLMIN_FORCED:
+            _assert_col_min_equal(col_min_kernel(C, **force), col_min_plain(C), C)
+            _assert_col_min_equal(col_min_kernel(C, uu, **force), min_trick_plain(C, uu),
+                                  C - uu[..., :, None])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_k1_k2_take_an_unaligned_view_on_card(cuda):
+    C, _ = _colmin_special(64, 1000, seed=5)
+    C, u = C.to(cuda), torch.zeros(2, 64, device=cuda)
+    buf = torch.empty(C.numel() + 1, dtype=torch.float32, device=cuda)
+    Cu = buf[1:].view(C.shape).copy_(C)
+    assert Cu.data_ptr() % 16 != 0
+    for force in COLMIN_FORCED:
+        _assert_col_min_equal(col_min_kernel(Cu, **force), col_min_plain(Cu), Cu)
+        _assert_col_min_equal(col_min_kernel(Cu, u, **force), min_trick_plain(Cu, u),
+                              Cu - u[..., :, None])
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,compare,times]
+    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream]
 
-``--phases`` runs a subset (for a first look at a changed kernel) and then
-prints no ``ok`` line; with no arguments every phase runs.
+``--phases`` runs a subset (for a first look at a changed kernel, or
+``build,stream`` after a change to the transfer layer) and then prints no
+``ok`` line; with no arguments every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -46,7 +47,17 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      bit-equal duals.
   6. Where one device solve's time goes (uniform): its stages, and the
      device's idle share and K4's time under torch.profiler.
-  7. Times: each kernel and its plain version at n = 2048 and 8192 beside
+  7. Stream: ``solve_stream(certify=True)`` in the postures of the JAX
+     package's bench (``STREAM_POSTURES``: float32, topk16, bfloat16, float16
+     and uint16 at n = 2048, with a noisy_linear instance for topk16 and a
+     sparse one for uint16; topk16 with ``microbatch=8`` at n = 512 and
+     1024), each timed as one stream and then as serial ``solve`` calls:
+     every instance certified and equal to SciPy's optimum (1e-12 relative)
+     and to its per-call result, K1-K4 launched in the stream; per posture
+     the payload's bytes, host pack, upload (copy stream) and decode times.
+     Then the card's decode against the CPU's, bit for bit, at n = 2048 and
+     8193 (past the ramp fill's gate).
+  8. Times: each kernel and its plain version at n = 2048 and 8192 beside
      its bound (the larger of the bytes it must move over the HBM rate and
      the float32 operations over the card's float32 rate).  Median of
      CUDA-event timings, all reps queued behind a spin kernel so the host's
@@ -596,6 +607,241 @@ def phase_e2e(torch, seed):
     return pipe, costs["uniform"]
 
 
+# The stream phase's postures (bench.py's streamed postures, on the card).
+# Each: (label, transfer_dtype, n, instance families, microbatch).
+STREAM_POSTURES = (
+    ("float32", "float32", N_E2E, ("uniform",) * 6, 1),
+    ("topk16", "topk16", N_E2E, ("uniform",) * 8, 1),
+    ("topk16_noisy_linear", "topk16", N_E2E, ("noisy_linear",), 1),
+    ("bfloat16", "bfloat16", N_E2E, ("uniform",) * 6, 1),
+    ("float16", "float16", N_E2E, ("uniform",) * 6, 1),
+    ("uint16", "uint16", N_E2E, ("uniform",) * 6, 1),
+    ("uint16_sparse", "uint16", N_E2E, ("sparse",), 1),
+    ("topk16_microbatch8_n512", "topk16", 512, ("uniform",) * 16, 8),
+    ("topk16_microbatch8_n1024", "topk16", 1024, ("uniform",) * 16, 8),
+)
+# Past 8192 rows the topk16 decode fills with a constant instead of the ramp.
+DECODE_SIZES = (N_E2E, 8193)
+
+
+def _stream_instances(n, fams, seed):
+    """float64 instances (what a caller holds; the certificate reads them)."""
+    import numpy as np
+
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+
+    rng = np.random.default_rng(seed)
+    return [FAMILIES[f](n, rng) for f in fams]
+
+
+def _payload_bytes(payload) -> int:
+    tensors = payload.values() if isinstance(payload, dict) else [payload]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _stream_stage_times(torch, pipe, chunks):
+    """For the first three chunks: the host pack (encode, then the copy into
+    pinned memory) on the host clock, the upload on a copy stream and the
+    decode on the current stream by CUDA events; medians in ms, and the
+    payload's bytes."""
+    from lapgnn_tpu_torch.pipeline import _decode_transfer, _host_array
+
+    stream = torch.cuda.Stream(pipe.device)
+    encode, pack, upload, decode, nbytes = [], [], [], [], []
+    for C in chunks[:1] + chunks[:3]:  # the first pass warms the copy path, and is dropped
+        t0 = time.perf_counter()
+        pipe._to_xfer(_host_array(C))
+        encode.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        host = pipe._pack(C)
+        pack.append((time.perf_counter() - t0) * 1e3)
+        nbytes.append(_payload_bytes(host))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        dev, _ = pipe._upload(host, stream)
+        end.record(stream)
+        end.synchronize()
+        upload.append(start.elapsed_time(end))
+        torch.cuda.current_stream().wait_stream(stream)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _decode_transfer(dev)
+        end.record()
+        end.synchronize()
+        decode.append(start.elapsed_time(end))
+    def med(xs):
+        return statistics.median(xs[1:])
+
+    return {"payload_bytes": med(nbytes), "encode_ms": med(encode), "pack_ms": med(pack),
+            "upload_ms": med(upload), "decode_ms": med(decode)}
+
+
+def _stream_seed(seed, n, fam):
+    """Instances of one family and size are the same in every posture."""
+    return seed + 100 + n + FAMILIES_E2E.index(fam)
+
+
+class _TimedParts:
+    """Times, while in use, each call of this pipeline's ``_e2e`` (decode,
+    predict, solve; host clock between synchronizes of the current stream) and
+    ``_certify_and_polish`` (host clock, in whichever thread runs it), by
+    shims on the pipeline object that are removed afterwards."""
+
+    def __init__(self, torch, pipe):
+        self.torch, self.pipe = torch, pipe
+        self.ms = {"e2e": [], "certify": []}
+
+    def __enter__(self):
+        torch, pipe, ms = self.torch, self.pipe, self.ms
+        e2e, certify = pipe._e2e, pipe._certify_and_polish
+
+        def timed_e2e(payload):
+            # the current stream only: uploads in flight on the copy stream go on
+            torch.cuda.current_stream().synchronize()
+            t0 = time.perf_counter()
+            out = e2e(payload)
+            torch.cuda.current_stream().synchronize()
+            ms["e2e"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def timed_certify(*args):
+            t0 = time.perf_counter()
+            certify(*args)
+            ms["certify"].append((time.perf_counter() - t0) * 1e3)
+
+        pipe._e2e, pipe._certify_and_polish = timed_e2e, timed_certify
+        return self.ms
+
+    def __exit__(self, *exc):
+        del self.pipe._e2e, self.pipe._certify_and_polish
+
+
+def phase_stream(torch, seed):
+    """``solve_stream(certify=True)`` in the postures of ``STREAM_POSTURES``
+    at the full width of the checkpoint, ``certify_tol=1e-12``.  Each posture
+    is warmed by a one-instance stream, then timed as one stream (launch
+    counters zeroed just before and read just after), then solved call by
+    call with ``solve(certify=True)`` (the same chunks where microbatched),
+    with the device part and the certificate timed in both runs.
+    Every instance must be certified and equal SciPy's float64 optimum to
+    1e-12 relative; the stream's results must equal the calls' (assignment,
+    cost, flags); K1-K4 must have launched in the stream.  Then the decode on
+    the card against the CPU decode of the same payloads, bit for bit."""
+    import numpy as np
+
+    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
+    from lapgnn_tpu_torch.pipeline import WarmStartPipeline
+    from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint
+
+    params, meta, _ = load_checkpoint(CHECKPOINT)
+    opt_cache = {}  # SciPy's optimum by (n, family, index)
+    for label, dtype, n, fams, mb in STREAM_POSTURES:
+        pipe = WarmStartPipeline(
+            build_model_from_meta(meta), params, seed_mode="auto", normalize_costs=True,
+            certify_tol=CERTIFY_TOL, transfer_dtype=dtype,
+            route="device" if n < N_E2E else "auto",
+        )
+        costs = _stream_instances(n, fams, _stream_seed(seed, n, fams[0]))
+        chunks = [np.stack(costs[i : i + mb]) for i in range(0, len(costs), mb)] if mb > 1 else costs
+        t_phase = time.perf_counter()
+        # warm the stream's code path on small instances (the kernels are built)
+        pipe.solve_stream(_stream_instances(64, fams[:mb], seed + 1), certify=True,
+                          microbatch=mb)
+        _zero_launches()
+        torch.cuda.synchronize()
+        with _TimedParts(torch, pipe) as in_stream:
+            t0 = time.perf_counter()
+            streamed = pipe.solve_stream(costs, certify=True, microbatch=mb)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_launches()
+        if (row_features_stats.launches < len(chunks) or col_min.launches < len(chunks)
+                or min_trick.launches < 2 * len(chunks) or two_min.launches < 1):
+            raise AssertionError(f"{label}: the stream skipped a kernel: launches {launches}")
+
+        serial, serial_ms = [], []
+        with _TimedParts(torch, pipe) as parts:
+            for C in chunks:
+                t0 = time.perf_counter()
+                serial.append(pipe.solve(C, certify=True))
+                serial_ms.append((time.perf_counter() - t0) * 1e3)
+        per_call = [{k: v[b : b + 1] for k, v in out.items()}
+                    for out in serial for b in range(out["col_of_row"].shape[0])]
+        for i, (C, got, want) in enumerate(zip(costs, streamed, per_call)):
+            for key in ("col_of_row", "cost", "certified", "repaired", "polished", "used_fallback"):
+                if not np.array_equal(got[key], want[key]):
+                    raise AssertionError(f"{label}[{i}]: the stream's {key} differs from solve's")
+            key = (n, fams[i], i)
+            if key not in opt_cache:
+                opt_cache[key] = _scipy_opt(C)
+            opt, cost = opt_cache[key], float(got["cost"][0])
+            if not (got["certified"].all() and abs(cost - opt) <= 1e-12 * max(1.0, abs(opt))):
+                raise AssertionError(f"{label}[{i}]: cost {cost!r} vs SciPy {opt!r}, "
+                                     f"certified {got['certified']}")
+        # per instance (a microbatched chunk's time shared by its instances)
+        per_inst = len(costs) / len(chunks)
+        stages = {f"{k}_per_instance": v / per_inst
+                  for k, v in _stream_stage_times(torch, pipe, chunks).items()}
+        med = statistics.median
+        e2e, cert = med(parts["e2e"]) / per_inst, med(parts["certify"]) / per_inst
+        pack, upload = stages["pack_ms_per_instance"], stages["upload_ms_per_instance"]
+        _emit({
+            "phase": "stream", "posture": label, "transfer_dtype": dtype, "n": n,
+            "instances": len(costs), "families": sorted(set(fams)), "microbatch": mb,
+            "certify_tol": CERTIFY_TOL, **stages,
+            "stream_wall_ms": wall_ms, "stream_ms_per_instance": wall_ms / len(costs),
+            "serial_solve_ms_sum": sum(serial_ms), "serial_solve_ms": serial_ms,
+            "serial_ms_per_instance": sum(serial_ms) / len(costs),
+            "e2e_ms_per_instance": e2e, "certify_ms_per_instance": cert,
+            # the same parts inside the stream, beside the other threads
+            "stream_e2e_ms_per_instance": med(in_stream["e2e"]) / per_inst,
+            "stream_certify_ms_per_instance": med(in_stream["certify"]) / per_inst,
+            # the stream's stages run side by side: pack, upload, solve, and two certificates
+            "stage_max_ms_per_instance": max(pack, upload, e2e, cert / 2),
+            "stage_sum_ms_per_instance": pack + upload + e2e + cert,
+            "certified": sum(int(o["certified"][0]) for o in streamed),
+            "repaired": sum(int(o["repaired"][0]) for o in streamed),
+            "polished": sum(int(o["polished"][0]) for o in streamed),
+            "polish_ms": [float(o["polish_ms"][0]) for o in streamed if o["polished"][0]],
+            "launches": launches, "posture_seconds": time.perf_counter() - t_phase,
+        })
+    _check_decode_on_card(torch, seed)
+
+
+def _check_decode_on_card(torch, seed):
+    """The decode on the card against the CPU decode of the same payload, bit
+    for bit: topk16 (k = 64) and uint16 of a uniform matrix with 1e6
+    sentinels at n = 2048 (the ramp fill) and 8193 (the constant fill), and
+    the 16-bit floats at n = 2048."""
+    import numpy as np
+
+    from lapgnn_tpu_torch.pipeline import _decode_transfer, quantize_topk16, quantize_u16
+
+    def same(payload, what):
+        on_card = _decode_transfer(
+            {k: v.cuda() for k, v in payload.items()} if isinstance(payload, dict)
+            else payload.cuda()).cpu()
+        on_cpu = _decode_transfer(payload)
+        if not torch.equal(on_card.view(torch.int32), on_cpu.view(torch.int32)):
+            raise AssertionError(f"the card's decode differs from the CPU's ({what})")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 77)
+    checked = []
+    for n in DECODE_SIZES:
+        C = rng.uniform(0.0, 1.0, (1, n, n)).astype(np.float32)
+        C[0, :, ::3][rng.uniform(0.0, 1.0, (n, (n + 2) // 3)) < 0.5] = 1e6
+        for name, enc in (("topk16", quantize_topk16(C, 64)), ("uint16", quantize_u16(C))):
+            same({k: torch.from_numpy(v) for k, v in enc.items()}, f"{name}, n={n}")
+            checked.append(f"{name}_n{n}")
+        del C
+    D = torch.from_numpy(rng.uniform(-1e3, 1e3, (1, N_E2E, N_E2E)))
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        same(D.to(dtype), f"{dtype}, n={N_E2E}")
+        checked.append(f"{str(dtype).split('.')[-1]}_n{N_E2E}")
+    _emit({"phase": "stream_decode", "bit_equal_card_vs_cpu": checked,
+           "seconds": time.perf_counter() - t0})
+
+
 def _ms_host(torch, fn, reps):
     """Median host-clock ms of ``fn`` over work that ends in a synchronize."""
     times = []
@@ -667,7 +913,7 @@ def phase_device_e2e(torch, seed):
         with torch.inference_mode():
             solve_ms = _ms_host(torch, lambda: lapjv_seeded_single(
                 Ct[0], u[0], v[0], eps=pipe.eps, gate=pipe.gate, stats=SolveStats()), 2)
-        packed = pipe._solve_device(Ct)
+        packed = pipe._e2e(Ct).cpu().numpy()
         again = pipe._unpack(packed, n)
         t0 = time.perf_counter()
         pipe._certify_and_polish(C64[None], packed, again)
@@ -1064,7 +1310,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="comma-separated subset of build,compare,times (no ok line)")
+                    help="comma-separated subset of build,compare,times,stream (no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -1088,7 +1334,8 @@ def main() -> int:
         if args.phases:
             subset = {"build": lambda: phase_build(torch, strict=False),
                       "compare": lambda: phase_compare(torch, args.seed),
-                      "times": lambda: phase_times(torch, args.seed)}
+                      "times": lambda: phase_times(torch, args.seed),
+                      "stream": lambda: phase_stream(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
@@ -1100,6 +1347,7 @@ def main() -> int:
         launches, dpipe, costs = phase_device_e2e(torch, args.seed)
         phase_device_vs_cpu(torch, dpipe, args.seed)
         phase_device_breakdown(torch, dpipe, costs["uniform"])
+        phase_stream(torch, args.seed)
         times = phase_times(torch, args.seed)
     except Exception:
         traceback.print_exc()

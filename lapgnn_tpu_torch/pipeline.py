@@ -15,13 +15,20 @@ min-trick projections through K2):
     seeded solver solves exactly in float64 on the host (the original
     system's own GPU posture: GPU predict, then a C++ solve).
 
-Not ported yet (each raises ``NotImplementedError``): the lossy transfer
-encodings and ``solve_stream``.
+Both modes take the cost through a transfer encoding (``transfer_dtype``):
+float32, the 16-bit floats bfloat16 and float16, or (device mode only) the
+uint16 fixed-point code of ``quantize_u16`` and the row-top-k code of
+``quantize_topk16``.  A host array is packed on the host and uploaded;
+``_decode_transfer`` turns the payload back into a float32 matrix on the
+device.  ``solve_stream`` pipelines the pack, the upload (a pinned copy on a
+CUDA stream of its own) and the certificate of a stream of instances around
+the device solves.
 """
 
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -37,12 +44,137 @@ from .solver.jv import SolveStats
 from .solver.seeded import lapjv_seeded_single
 from .train.convert import params_from_flax
 
-__all__ = ["WarmStartPipeline", "predict_duals_fn"]
+__all__ = ["WarmStartPipeline", "predict_duals_fn", "quantize_u16", "quantize_topk16"]
 
-_TRANSFER_SLICE = (
-    "lossy transfer encodings and solve_stream are the next slice of the port "
-    "and are not ported yet; use transfer_dtype='float32'"
-)
+# Two-segment uint16 fixed-point code (pipeline.py:34-39 of the JAX version):
+# codes 0.._U16_BULK-1 grid the bulk range [lo, cap] finely; codes
+# _U16_BULK..65535 grid the tail (cap, hi] coarsely (sentinels, outliers).
+_U16_BULK = 61440
+_U16_TAIL = 65536 - _U16_BULK  # 4096
+
+Payload = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def quantize_u16(a: np.ndarray) -> Dict[str, np.ndarray]:
+    """Per-instance two-segment uint16 fixed-point encoding of a cost batch
+    (a copy of the JAX version's, pipeline.py:42).
+
+    Returns ``{"q": (B,n,m) uint16, "lo"/"step"/"cap"/"step2": (B,) f32}``;
+    decode is ``lo + step*q`` for bulk codes (q < 61440) and
+    ``cap + step2*(q - 61440)`` for tail codes.  Accepts (n, m) or
+    (B, n, m); always returns batched.
+
+    The bulk grid ends at a robust ``cap = min(hi, p25 + 16*(p25 - p10))``
+    from the low quantiles of an 8x8-strided subsample, so forbidden-edge
+    sentinels (the sparse family's 1e6 entries) take tail codes instead of
+    stretching the bulk step; constant and all-tie matrices still get
+    strictly positive steps.  NaN entries take code 65535.  Exactness is
+    restored against the true f64 matrix by ``certify=True``.
+    """
+    a32 = np.ascontiguousarray(a, np.float32)
+    if a32.ndim == 2:
+        a32 = a32[None]
+    B = a32.shape[0]
+    flat = a32.reshape(B, -1)
+    with np.errstate(invalid="ignore"):
+        lo = np.nanmin(flat, axis=1)
+        hi = np.nanmax(flat, axis=1)
+    sub = a32[:, ::8, ::8].reshape(B, -1)
+    p10, p25 = np.nanpercentile(sub, [10.0, 25.0], axis=1).astype(np.float32)
+    cap = np.minimum(hi, p25 + 16.0 * np.maximum(p25 - p10, 0.0))
+    cap = np.maximum(cap, np.nextafter(lo, np.float32(np.inf)))
+    step = ((cap.astype(np.float64) - lo) / (_U16_BULK - 1)).astype(np.float32)
+    step2 = np.maximum(
+        ((hi.astype(np.float64) - cap) / (_U16_TAIL - 1)).astype(np.float32),
+        np.float32(1e-37),
+    )
+    bulk = a32 <= cap[:, None, None]
+    qf = np.where(
+        bulk,
+        np.rint((a32 - lo[:, None, None]) / step[:, None, None]),
+        _U16_BULK + np.rint((a32 - cap[:, None, None]) / step2[:, None, None]),
+    )
+    q = np.clip(np.nan_to_num(qf, nan=65535.0), 0.0, 65535.0).astype(np.uint16)
+    return {"q": q, "lo": lo, "step": step, "cap": cap, "step2": step2}
+
+
+def quantize_topk16(a: np.ndarray, k: int = 64) -> Dict[str, np.ndarray]:
+    """Top-k row-sparsified uint16 transfer encoding (a copy of the JAX
+    version's, pipeline.py:104): only each row's k smallest entries travel.
+
+    Returns ``{"qv": (B,n,k) uint16, "qi": (B,n,k) uint16 column indices,
+    "lo"/"step"/"fill": (B,) f32}``; ``_decode_transfer`` rebuilds a dense
+    matrix filled with ``fill``, strictly above every kept value, and
+    scatters the decoded values back.  n*k*4 bytes instead of n*n*4, and a
+    u16 grid over the kept range only.  Where the optimum uses an unkept
+    edge (the noisy_linear family does, on every instance measured), the
+    certificate fails and the host polish restores the exact optimum.
+
+    NaN values take the top code.  Needs m <= 65535 (uint16 column
+    indices); k is clamped to m.
+    """
+    a32 = np.ascontiguousarray(a, np.float32)
+    if a32.ndim == 2:
+        a32 = a32[None]
+    B, n, m = a32.shape
+    if m > 65535:
+        raise ValueError("topk16 transfer needs n <= 65535 for u16 indices")
+    k = min(k, m)
+    idx = np.argpartition(a32, k - 1, axis=-1)[..., :k]
+    vals = np.take_along_axis(a32, idx, axis=-1)
+    flat = vals.reshape(B, -1)
+    with np.errstate(invalid="ignore"):
+        lo = np.nanmin(flat, axis=1)
+        cap = np.nanmax(flat, axis=1)
+    span = np.maximum(cap - lo, np.float32(1e-30))
+    step = (span.astype(np.float64) / 65535).astype(np.float32)
+    qf = np.rint((vals - lo[:, None, None]) / step[:, None, None])
+    qv = np.clip(np.nan_to_num(qf, nan=65535.0), 0.0, 65535.0).astype(np.uint16)
+    fill = cap + np.float32(0.25) * span + np.float32(1e-6)
+    return {
+        "qv": qv,
+        "qi": idx.astype(np.uint16),
+        "lo": lo,
+        "step": step,
+        "fill": fill,
+    }
+
+
+def _decode_transfer(cost: Payload) -> torch.Tensor:
+    """A transfer payload on any device -> the (B, n, m) float32 matrix there
+    (pipeline.py:178 of the JAX version, operation for operation, so that the
+    decoded bits and with them the device solver's ties are the JAX ones).
+
+    A dict with "qi" is the top-k code: a dense matrix of ``fill``, for
+    n <= 8192 tie-broken by the per-column ramp ``fill + j*(fill*2.5e-7)``
+    (constant above, where the ramp slowed the solve), with the kept values
+    scattered into their columns (unique within a row).  A dict with "q" is
+    the two-segment uint16 code.  A tensor is cast to float32.  The uint16
+    tensors are converted before any arithmetic: torch supports little else
+    on them."""
+    if isinstance(cost, dict) and "qi" in cost:
+        qv, qi = cost["qv"].to(torch.float32), cost["qi"].to(torch.int64)
+        B, n, k = qv.shape
+        vals = cost["lo"][:, None, None] + cost["step"][:, None, None] * qv
+        fill = cost["fill"][:, None, None]
+        if n <= 8192:
+            ramp = torch.arange(n, dtype=torch.float32, device=qv.device)[None, None, :]
+            fill = fill + ramp * (fill * 2.5e-7)
+        return fill.expand(B, n, n).contiguous().scatter_(2, qi, vals)
+    if isinstance(cost, dict):
+        qf = cost["q"].to(torch.float32)
+        bulk = cost["lo"][:, None, None] + cost["step"][:, None, None] * qf
+        tail = cost["cap"][:, None, None] + cost["step2"][:, None, None] * (
+            qf - float(_U16_BULK)
+        )
+        return torch.where(qf < float(_U16_BULK), bulk, tail)
+    return cost.to(torch.float32)
+
+
+def _map_payload(fn: Callable[[torch.Tensor], torch.Tensor], payload: Payload) -> Payload:
+    if isinstance(payload, dict):
+        return {key: fn(t) for key, t in payload.items()}
+    return fn(payload)
 
 
 def predict_duals_fn(
@@ -91,6 +223,16 @@ class WarmStartPipeline:
     without one); pass ``device="cpu"`` to run on the CPU.  ``params`` is
     the flax parameter tree that ``train.checkpoint.load_checkpoint`` returns;
     it is loaded into ``model``, which moves to ``device``.
+
+    ``transfer_dtype`` is how a cost reaches the device: 'float32', the
+    16-bit floats 'bfloat16' / 'float16', or, in device mode only, 'uint16'
+    (``quantize_u16``) and 'topk16' (``quantize_topk16`` with
+    ``transfer_topk`` entries a row).  The residency rule, as in the JAX
+    class: a tensor already on the pipeline's device is only cast there (to
+    float32 for 'uint16' / 'topk16', which would only lose bits, else to the
+    transfer dtype); anything else is packed on the host (``_to_xfer``) and
+    uploaded.  The device solves the decoded matrix; ``certify=True`` holds
+    the result to the caller's true matrix in float64.
     """
 
     def __init__(
@@ -118,13 +260,16 @@ class WarmStartPipeline:
                 "transfer_dtype must be 'float32', 'bfloat16', 'float16', "
                 "'uint16', or 'topk16'"
             )
+        if transfer_dtype in ("uint16", "topk16") and mode != "device":
+            raise ValueError(f"transfer_dtype={transfer_dtype!r} requires mode='device'")
         if route not in ("auto", "device", "host"):
             raise ValueError("route must be 'auto', 'device', or 'host'")
         if gate not in ("density", "free_rows", "both", "never"):
             raise ValueError("gate must be 'density', 'free_rows', 'both', or 'never'")
-        if transfer_dtype != "float32":
-            raise NotImplementedError(_TRANSFER_SLICE)
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # a definite index, so that tensors on it compare equal to it
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.mode = mode
         self.eps = eps
         self.gate = gate
@@ -132,6 +277,10 @@ class WarmStartPipeline:
         self.seed_mode = seed_mode
         self.transfer_dtype = transfer_dtype
         self.transfer_topk = transfer_topk
+        # what a tensor already on the device is cast to (the residency rule)
+        self._resident_dtype = {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
+            transfer_dtype, torch.float32
+        )
         self.route = route
         self.route_device_min_n = route_device_min_n
         self.route_native_max_n = route_native_max_n
@@ -156,6 +305,36 @@ class WarmStartPipeline:
         """(B, n, n) -> ((B, n) u, (B, n) v) on the device, dual-feasible."""
         return self._predict(self._to_device(cost))
 
+    def _to_xfer(self, c) -> Payload:
+        """Pack a host array into the transfer encoding, as CPU tensors; the
+        payload is always batched (pipeline.py:495 of the JAX version).
+
+        bfloat16 packs by integer bit operations on the float32 image
+        (round to nearest even: add 0x7FFF plus the kept lowest bit, shift),
+        the JAX version's own bits for every input: float64 rounds twice (to
+        float32, then to bfloat16), and a NaN's payload carries into the
+        exponent, so NaN packs to an infinity.  Either only seeds the solve;
+        the certificate reads the true matrix."""
+        if self.transfer_dtype in ("topk16", "uint16"):
+            enc = (quantize_topk16(c, self.transfer_topk) if self.transfer_dtype == "topk16"
+                   else quantize_u16(c))
+            return {key: torch.from_numpy(a) for key, a in enc.items()}
+        if self.transfer_dtype == "bfloat16":
+            bits = np.ascontiguousarray(c, np.float32).view(np.uint32)
+            hi = ((bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16)) & np.uint32(1)))
+                  >> np.uint32(16)).astype(np.uint16)
+            out = torch.from_numpy(hi.view(np.int16)).view(torch.bfloat16)
+        else:
+            out = torch.from_numpy(np.ascontiguousarray(c, self.transfer_dtype))
+        return out if out.ndim == 3 else out[None]
+
+    def _stage(self, cost) -> Payload:
+        """The residency rule: ``cost`` -> a batched payload on the device."""
+        if isinstance(cost, torch.Tensor) and cost.device == self.device:
+            t = cost.to(self._resident_dtype)
+            return (t if t.ndim == 3 else t[None]).contiguous()
+        return _map_payload(lambda t: t.to(self.device), self._to_xfer(_host_array(cost)))
+
     def solve(self, cost, certify: bool = False) -> Dict[str, np.ndarray]:
         """Solve a batch.  Returns a dict with col_of_row, cost and
         used_fallback; with ``certify`` also certified, gap_bound, repaired,
@@ -168,19 +347,19 @@ class WarmStartPipeline:
         assignment.  Hybrid solves are float64-exact, so their certificate
         fields are trivially satisfied."""
         on_card = isinstance(cost, torch.Tensor) and cost.device.type == "cuda"
-        if not on_card and self._route_to_host(np.shape(cost)[-1]):
+        shape = tuple(np.shape(cost))
+        if not on_card and self._route_to_host(shape[-1]):
             return self._solve_host_route(_host_f64(cost), certify)
+        if self.mode == "device" and shape[-2] != shape[-1]:
+            raise ValueError(f"device mode solves square instances, got {shape}")
+        payload = self._stage(cost)
         if self.mode == "device":
-            cost_t = self._to_device(cost)
-            n = cost_t.shape[-1]
-            if cost_t.shape[-2] != n:
-                raise ValueError(f"device mode solves square instances, got {tuple(cost_t.shape)}")
-            packed = self._solve_device(cost_t)
-            out = self._unpack(packed, n)
+            packed = self._e2e(payload).cpu().numpy()
+            out = self._unpack(packed, shape[-1])
             if certify:
                 self._certify_and_polish(_host_f64(cost), packed, out)
             return out
-        out = self._solve_hybrid(cost)
+        out = self._solve_hybrid(cost, payload)
         if certify:
             _add_trivial_certificate(out)
         return out
@@ -198,7 +377,104 @@ class WarmStartPipeline:
         return n < self.route_device_min_n and self.device.type == "cuda"
 
     def solve_stream(self, costs, certify: bool = False, microbatch: int = 1) -> list:
-        raise NotImplementedError(_TRANSFER_SLICE)
+        """Pipelined solve of a stream of host instances; one result dict per
+        instance (leading dimension 1), the schema of ``solve``; device mode
+        only, and never routed by size (pipeline.py:769 of the JAX version).
+
+        Three stages run beside the device solves: one worker packs each
+        instance (``_to_xfer``, then a copy into pinned memory), one ahead of
+        the uploads; another uploads with ``non_blocking`` copies on a CUDA
+        stream of its own and records an event after each, at most ``DEPTH``
+        ahead of the solve; the solve's stream waits on that event before the
+        decode.  With ``certify`` the float64 certificates run on a pool of
+        two workers (numpy and the native repair and polish release the
+        interpreter lock for their heavy loops) while the next instance
+        solves; their exceptions re-raise at the end.  The device solve reads
+        its loop conditions on the host, so it returns solved: its packed
+        result is copied to the host at once, the one sync the stream adds.
+        On the CPU the same code runs and the copies are no-ops.
+
+        ``microbatch > 1`` stacks consecutive instances into one batch (the
+        last one ragged where the count does not divide) and splits the
+        results back."""
+        if self.mode != "device":
+            raise ValueError("solve_stream requires mode='device'")
+        costs = list(costs)
+        if microbatch > 1:
+            chunks = [
+                np.stack([_host_array(c) for c in costs[i : i + microbatch]])
+                for i in range(0, len(costs), microbatch)
+            ]
+            outs = []
+            for cr in self.solve_stream(chunks, certify):
+                for b in range(cr["col_of_row"].shape[0]):
+                    outs.append({k: v[b : b + 1] for k, v in cr.items()})
+            return outs
+        DEPTH = 3
+        copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        pack_pool = ThreadPoolExecutor(max_workers=1)
+        upload_pool = ThreadPoolExecutor(max_workers=1)
+        cert_pool = ThreadPoolExecutor(max_workers=2) if certify else None
+        pack_futures: list = []
+        upload_futures: list = []
+        cert_futures: list = []
+        results = []
+
+        def upload(k):
+            host = pack_futures[k].result()
+            # the pinned host buffer stays referenced with its upload
+            return self._upload(host, copy_stream) + (host,)
+
+        try:
+            for k in range(len(costs)):
+                while len(pack_futures) < min(len(costs), k + DEPTH + 1):
+                    pack_futures.append(pack_pool.submit(self._pack, costs[len(pack_futures)]))
+                while len(upload_futures) < min(len(costs), k + DEPTH):
+                    upload_futures.append(upload_pool.submit(upload, len(upload_futures)))
+                payload, event, _pinned = upload_futures[k].result()
+                upload_futures[k] = pack_futures[k] = None
+                if event is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(event)
+                    _map_payload(lambda t: t.record_stream(current), payload)
+                packed = self._e2e(payload).cpu().numpy()
+                del payload, _pinned  # the copy above waited for the upload
+                c_np = _host_f64(costs[k])
+                out = self._unpack(packed, c_np.shape[-1])
+                if certify:
+                    cert_futures.append(
+                        cert_pool.submit(self._certify_and_polish, c_np, packed, out)
+                    )
+                results.append(out)
+            for f in cert_futures:
+                f.result()  # re-raises a worker's exception
+        finally:
+            pack_pool.shutdown(wait=True)
+            upload_pool.shutdown(wait=True)
+            if cert_pool is not None:
+                cert_pool.shutdown(wait=True)
+        return results
+
+    def _pack(self, cost) -> Payload:
+        """``_to_xfer`` of one stream entry, in pinned memory when the device
+        is a GPU (so that its upload can be asynchronous)."""
+        host = self._to_xfer(_host_array(cost))
+        if self.device.type != "cuda":
+            return host
+        return _map_payload(lambda t: t.pin_memory(), host)
+
+    def _upload(self, host: Payload, stream) -> Tuple[Payload, Optional["torch.cuda.Event"]]:
+        """Copy a packed payload to the device.  With a CUDA ``stream`` the
+        copies are issued on it without blocking, and an event recorded
+        after them is returned; on the CPU (``stream`` None) the copy is a
+        no-op and the event None."""
+        if stream is None:
+            return _map_payload(lambda t: t.to(self.device), host), None
+        with torch.cuda.stream(stream):
+            dev = _map_payload(lambda t: t.to(self.device, non_blocking=True), host)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return dev, event
 
     def _solve_host_route(self, cost64: np.ndarray, certify: bool) -> Dict[str, np.ndarray]:
         """Host route: cold native JV up to ``route_native_max_n``, SciPy
@@ -227,11 +503,13 @@ class WarmStartPipeline:
             _add_trivial_certificate(out)
         return out
 
-    def _solve_device(self, cost_t: torch.Tensor) -> np.ndarray:
-        """Predict, then the seeded float32 solve instance by instance on the
-        device (as the JAX serving program's ``lax.scan``), then one packed
-        (B, 2 + 2n) float32 buffer ``[cost, used_fallback, col_of_row, v]``
-        copied to the host once (pipeline.py:440-489 of the JAX version)."""
+    def _e2e(self, payload: Payload) -> torch.Tensor:
+        """Decode, predict, then the seeded float32 solve instance by
+        instance on the device (as the JAX serving program's ``lax.scan``);
+        returns the packed (B, 2 + 2n) float32 result ``[cost,
+        used_fallback, col_of_row, v]`` on the device, for one copy to the
+        host (pipeline.py:440-489 of the JAX version)."""
+        cost_t = _decode_transfer(payload)
         u, v = self._predict(cost_t)
         self.last_solve_stats = []
         rows = []
@@ -248,7 +526,7 @@ class WarmStartPipeline:
                     res.col_of_row.to(torch.float32),
                     res.v.to(torch.float32),
                 ]))
-            return torch.stack(rows).cpu().numpy()
+            return torch.stack(rows)
 
     @staticmethod
     def _unpack(packed: np.ndarray, n: int) -> Dict[str, np.ndarray]:
@@ -333,12 +611,14 @@ class WarmStartPipeline:
         out["polished"] = polished
         out["polish_ms"] = polish_ms
 
-    def _solve_hybrid(self, cost) -> Dict[str, np.ndarray]:
-        """GPU predict, one stacked (B, 2, n) device-to-host copy of (u, v),
-        then the float64 native seeded solve per instance."""
+    def _solve_hybrid(self, cost, payload: Payload) -> Dict[str, np.ndarray]:
+        """GPU predict from the decoded transfer image (as the JAX version
+        does, pipeline.py:902), one stacked (B, 2, n) device-to-host copy of
+        (u, v), then the float64 native seeded solve of the true matrix per
+        instance."""
         from .solver.native import lapjv_seeded_native
 
-        u, v = self._predict(self._to_device(cost))
+        u, v = self._predict(_decode_transfer(payload))
         packed_uv = torch.stack([u, v], dim=1).cpu().numpy()
         u_np = packed_uv[:, 0, :].astype(np.float64)
         v_np = packed_uv[:, 1, :].astype(np.float64)
@@ -359,10 +639,17 @@ class WarmStartPipeline:
         }
 
 
-def _host_f64(cost) -> np.ndarray:
+def _host_array(cost) -> np.ndarray:
+    """A host view of an array or a tensor (a GPU tensor is copied; numpy has
+    no bfloat16, so a bfloat16 tensor comes back as float32)."""
     if isinstance(cost, torch.Tensor):
-        cost = cost.detach().cpu().numpy()
-    c = np.asarray(cost, np.float64)
+        t = cost.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(cost)
+
+
+def _host_f64(cost) -> np.ndarray:
+    c = np.asarray(_host_array(cost), np.float64)
     return c if c.ndim == 3 else c[None]
 
 

@@ -63,9 +63,10 @@ class Matching(NamedTuple):
 class SolveStats:
     """Loop counts of one solve, and its host syncs: each read of a device
     value by the host (a loop condition, the flip's copies).  With ``timed``
-    each stage synchronises the device before and after itself and adds its
-    host-clock time to ``stage_ms``; ``flip_ms`` is the host time of the
-    path flips, copies included, and is always kept."""
+    each stage synchronises the current stream before and after itself (work
+    on other streams, such as an upload in flight, is not waited for) and
+    adds its host-clock time to ``stage_ms``; ``flip_ms`` is the host time
+    of the path flips, copies included, and is always kept."""
 
     greedy_rounds: int = 0
     arr_rounds: int = 0
@@ -107,7 +108,7 @@ class SolveStats:
 
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def matching_cost(C: torch.Tensor, col_of_row: torch.Tensor) -> torch.Tensor:

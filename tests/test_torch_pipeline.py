@@ -224,12 +224,15 @@ def test_constructor_validation_and_unported_modes():
 
     assert make().mode == "device"  # the JAX default
     assert make(mode="device").mode == "device"
-    for mode in ("device", "hybrid"):
-        for enc in ("bfloat16", "float16", "uint16", "topk16"):
-            with pytest.raises(NotImplementedError):
-                make(mode=mode, transfer_dtype=enc)
-        with pytest.raises(NotImplementedError):
-            make(mode=mode).solve_stream([np.zeros((4, 4))])
+    for enc in ("float32", "bfloat16", "float16", "uint16", "topk16"):
+        assert make(transfer_dtype=enc).transfer_dtype == enc
+    for enc in ("float32", "bfloat16", "float16"):
+        assert make(mode="hybrid", transfer_dtype=enc).mode == "hybrid"
+    for enc in ("uint16", "topk16"):  # their decode runs in device mode only
+        with pytest.raises(ValueError, match="requires mode='device'"):
+            make(mode="hybrid", transfer_dtype=enc)
+    with pytest.raises(ValueError, match="requires mode='device'"):
+        make(mode="hybrid").solve_stream([np.zeros((4, 4))])
     for bad in ({"mode": "x"}, {"route": "x"}, {"gate": "x"}, {"transfer_dtype": "int8"}):
         with pytest.raises(ValueError):
             make(**bad)

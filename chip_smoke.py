@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream]
+    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream,train]
 
-``--phases`` runs a subset (for a first look at a changed kernel, or
-``build,stream`` after a change to the transfer layer) and then prints no
-``ok`` line; with no arguments every phase runs.
+``--phases`` runs a subset (for a first look at a changed kernel,
+``build,stream`` after a change to the transfer layer, ``build,train`` after
+one to the training path) and then prints no ``ok`` line; with no arguments
+every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -27,7 +28,12 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      rows with +-inf.  K3 and K4 again at the ragged shapes their tiling
      must survive: m in {1, 7, 10, 11, 33, 1001}, m = 16384 (eight warps a
      row), m = 20000 (K3's shared-memory path), and a view that starts 4
-     bytes into its buffer.
+     bytes into its buffer.  A row of 60,000 columns, past K3's limit on
+     the card, goes to the sort-based row features (held to them within
+     K3's tolerance, K3 not launched).  The training loss's greedy bound
+     kernel bit for bit against its plain loop and against the CPU, at n in
+     {1, 7, 512, 1024, 2048, 4097} on tie-heavy rows, a row of +inf, rows
+     with +inf tails, a row with a NaN, with and without a row mask.
   3. Hybrid end to end: ``WarmStartPipeline(mode="hybrid", seed_mode="auto",
      normalize_costs=True)`` with ``artifacts/one_gnn_default`` (OneGNN,
      hidden 192, 4 layers, top-k 16) solves one instance of each of four
@@ -57,7 +63,25 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      the payload's bytes, host pack, upload (copy stream) and decode times.
      Then the card's decode against the CPU's, bit for bit, at n = 2048 and
      8193 (past the ramp fill's gate).
-  8. Times: each kernel and its plain version at n = 2048 and 8192 beside
+  8. Train: ``train_progressive`` with ``artifacts/one_gnn_default``'s own
+     config (hidden 192, 4 layers, top-k 16, cost refinement, normalised
+     costs and gap), warm-started from its weights (every leaf restored),
+     one epoch over labelled synthetic instances from ``--seed`` (n = 512:
+     32 train + 8 val; n = 1024: 8; n = 2048: 2; labelled by SciPy in a
+     process pool while the compare phase runs): every step's loss finite, the parameters moved, ``best/``
+     and ``last/`` written, the greedy kernel launched once a train step and
+     once a validation batch.  ``last/`` then serves one uniform n = 2048
+     instance in the default device mode to a certified optimum equal to
+     SciPy's (1e-12 relative).  One step at n = 512, B = 4, dropout 0 on the
+     card against the CPU: loss within 1e-5 relative, each gradient within
+     1e-4 max|g| + 1e-7, greedy bound bit-equal.  Then ms a step at (B, n) =
+     (32, 512), (32, 1024), (16, 2048), each step cut at its stages (features,
+     forward, loss with the greedy kernel, backward, optimizer) by CUDA
+     events recorded around the functions the real step calls, the peak
+     memory at (16, 2048), and, on the arguments the real step hands it at
+     each of those shapes, the greedy kernel bit for bit against its plain
+     loop, with both times, the loop's launches and the kernel's bound.
+  9. Times: each kernel and its plain version at n = 2048 and 8192 beside
      its bound (the larger of the bytes it must move over the HBM rate and
      the float32 operations over the card's float32 rate).  Median of
      CUDA-event timings, all reps queued behind a spin kernel so the host's
@@ -79,6 +103,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -126,7 +151,18 @@ KERNELS = {
         "source": "lapgnn_tpu_torch/csrc/twomin.cu",
         "replaces": "lapgnn_tpu/ops/pallas/twomin.py:40",
     },
+    # no Pallas kernel: the training loss's lax.scan, which XLA compiles into
+    # one device loop
+    "greedy_total": {
+        "route": "cuda",
+        "source": "lapgnn_tpu_torch/csrc/greedy.cu",
+        "replaces": "lapgnn_tpu/train/loss.py:79",
+    },
 }
+# The train phase: the sizes of one_gnn_default's config.
+TRAIN_SIZES = ((512, 32, 8), (1024, 8, 0), (2048, 2, 0))  # (n, train, val)
+TRAIN_TIMED = ((32, 512), (32, 1024), (16, 2048))  # (B, n) of the step times
+GREEDY_SIZES = (1, 7, 512, 1024, 2048, 4097)
 
 
 def _emit(obj) -> None:
@@ -150,7 +186,11 @@ def _bound_ms(name: str, B: int, n: int, m: int):
     are integer compares whose count depends on the selection algorithm and
     which the rate table does not cover, so K3 is held to the bytes bound.
     K4 reads C and v and writes min1, min2 and the int32 argmin; it does a
-    subtract and two compares per element."""
+    subtract and two compares per element.  The greedy bound reads the
+    reduced costs once, one chosen cost a row and the int64 order, writes a
+    total an instance, and compares each entry once a step it is read; its
+    scan is sequential, so its real floor, n steps of latency, is reported
+    beside this bound (``serial_floor_ms``)."""
     f32 = 4
     if name == "col_min":
         nbytes, ops = B * n * m * f32 + B * m * f32, B * n * m
@@ -158,6 +198,9 @@ def _bound_ms(name: str, B: int, n: int, m: int):
         nbytes, ops = B * n * m * f32 + B * n * f32 + B * m * f32, 2 * B * n * m
     elif name == "two_min":
         nbytes, ops = B * n * m * f32 + B * m * f32 + 3 * B * n * f32, 3 * B * n * m
+    elif name == "greedy_total":
+        # red read once, the n chosen costs, the int64 order, the totals
+        nbytes, ops = B * n * m * f32 + B * n * f32 + B * n * 8 + B * f32, B * n * m
     else:
         nbytes, ops = B * n * m * f32 + B * n * 13 * f32, 0
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -506,10 +549,86 @@ def phase_compare(torch, seed):
     _check_two_min(torch, two_min(_nan_inf_rows(torch, Cu), vu),
                    two_min_plain(_nan_inf_rows(torch, Cu), vu), "inf/NaN rows, unaligned view")
 
+    long_row = _check_long_row(torch, seed)
+    greedy, errs["greedy_total"] = _check_greedy(torch, seed)
     _emit({"phase": "compare", "max_abs_err": errs, "detail": detail, "ragged": ragged,
            "k1_k2_shapes": colmin_shapes, "k1_k2_mixed_zero_signs": zero_signs,
-           "unaligned_view": {"n": n, "k3_max_abs_err": e3}})
+           "unaligned_view": {"n": n, "k3_max_abs_err": e3},
+           "k3_long_row": long_row, "greedy": greedy})
     return errs
+
+
+def _check_long_row(torch, seed):
+    """A row longer than K3 takes on this card (about 58K columns) goes to
+    the sort-based row features, not to the kernel: held against
+    ``row_features`` within K3's tolerance, with K3's counter unmoved."""
+    from lapgnn_tpu_torch.ops import features
+    from lapgnn_tpu_torch.ops.cuda import row_features_stats
+    from lapgnn_tpu_torch.ops.cuda.features import row_features_max_m
+
+    limit = row_features_max_m(torch.device("cuda"))
+    m = 60_000
+    if m <= limit:
+        raise AssertionError(f"K3 takes rows of {limit} columns; the long-row check needs more")
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    C = torch.rand((1, 2, m), generator=g, device="cuda")
+    before = row_features_stats.launches
+    got = features.fast_row_features(C)
+    want = features.row_features(C)
+    torch.cuda.synchronize()
+    if row_features_stats.launches != before:
+        raise AssertionError("a row past K3's limit launched K3")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=K3_RTOL, atol=K3_ATOL):
+        raise AssertionError(f"long row: fast_row_features differs from row_features by {err}")
+    return {"m": m, "k3_max_m": limit, "max_abs_err": err}
+
+
+def _max_abs_err(torch, got, want):
+    """Largest |got - want| over the entries where it is a number (equal
+    infinities and NaNs, held bit for bit by the caller, give none)."""
+    d = (got.float() - want.float()).abs()
+    d = d[torch.isfinite(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _check_greedy(torch, seed):
+    """The greedy kernel against its plain loop, bit for bit: n in
+    ``GREEDY_SIZES`` on the tie family (rows of equal values), a row of +inf,
+    rows with +inf tails, a row with a NaN (the first NaN wins the argmin),
+    and with and without a row mask.  Returns (detail, max abs error)."""
+    import numpy as np
+
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+    from lapgnn_tpu_torch.ops.cuda.greedy import greedy_total, greedy_total_plain
+    from lapgnn_tpu_torch.train.loss import greedy_primal_upper
+
+    out, err = [], 0.0
+    for n in GREEDY_SIZES:
+        B = 2 if n > 2048 else 4
+        rng = np.random.default_rng(seed + n)
+        fams = ("tie", "uniform", "tie", "sparse")[:B]
+        C = torch.from_numpy(np.stack([FAMILIES[f](n, rng).astype(np.float32) for f in fams])).cuda()
+        red = C - C.amin(-2, keepdim=True) - 0.05 * torch.arange(n, device="cuda")[:, None] / n
+        red[0, n // 2, :] = torch.inf
+        red[1 % B, :, n // 3:] = torch.inf
+        red[B - 1, n // 4, (n - 1) // 5 :: 7] = torch.nan
+        mask = torch.ones((B, n), dtype=torch.bool, device="cuda")
+        mask[B - 1, ::3] = False
+        for m in (None, mask):
+            got = greedy_primal_upper(C, red, m).cpu()
+            want = greedy_primal_upper(C.cpu(), red.cpu(), None if m is None else m.cpu())
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"greedy kernel differs from the CPU at n={n}, mask={m is not None}")
+            order = torch.argsort(red.amin(-1), dim=-1, stable=True)
+            k = greedy_total(red, C, order, m)
+            pl = greedy_total_plain(red, C, order, m)
+            torch.cuda.synchronize()
+            if not torch.equal(k.view(torch.int32), pl.view(torch.int32)):
+                raise AssertionError(f"greedy kernel differs from its plain loop at n={n}")
+            err = max(err, _max_abs_err(torch, got, want), _max_abs_err(torch, k, pl))
+        out.append({"n": n, "batch": B, "bit_equal": True})
+    return out, err
 
 
 CHECKPOINT = Path(__file__).resolve().parent / "artifacts" / "one_gnn_default"
@@ -994,6 +1113,353 @@ def phase_device_breakdown(torch, pipe, C_np):
     })
 
 
+def _labelled(job):
+    """(family, n, seed) -> the record of one labelled synthetic instance; a
+    worker of the train phase's process pool."""
+    import numpy as np
+
+    from lapgnn_tpu_torch.data.synthetic import generate_synthetic_instance, instance_record
+
+    fam, n, seed = job
+    return instance_record(generate_synthetic_instance(fam, n, np.random.default_rng(seed)))
+
+
+def _train_data_async(seed):
+    """Start labelling the train phase's instances, ``TRAIN_SIZES`` of them,
+    the families taken in turn from ``FAMILIES``, by SciPy in a pool of
+    spawned processes (largest first).  Returns ``collect()``, which waits
+    for them, shuts the pool down and returns ({n: (train, val)}, seconds
+    from the start, workers)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+
+    fams = list(FAMILIES)
+    jobs = [(fams[i % len(fams)], n, seed * 1_000_003 + n * 101 + i)
+            for n, train, val in TRAIN_SIZES for i in range(train + val)]
+    workers = max(1, min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    futures = {k: pool.submit(_labelled, jobs[k])
+               for k in sorted(range(len(jobs)), key=lambda k: -jobs[k][1])}
+
+    def collect():
+        try:
+            records = [futures[k].result() for k in range(len(jobs))]
+        finally:
+            pool.shutdown(cancel_futures=True)
+        data, k = {}, 0
+        for n, train, val in TRAIN_SIZES:
+            data[n] = (records[k : k + train], records[k + train : k + train + val])
+            k += train + val
+        return data, time.perf_counter() - t0, workers
+
+    return collect
+
+
+def _tiled(torch, records, B):
+    """A (B, n, n) cost and (B, n) dual batch on the card, the records
+    repeated in turn."""
+    import numpy as np
+
+    pick = [records[i % len(records)] for i in range(B)]
+    cost = np.stack([r["cost"] for r in pick]).astype(np.float32)
+    u = np.stack([r["u"] for r in pick]).astype(np.float32)
+    return torch.from_numpy(cost).cuda(), torch.from_numpy(u).cuda()
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _train_model(torch, config, init, device, dropout=None):
+    """OneGNN at the config's width on ``device`` with ``init``'s weights,
+    and an optimizer over it."""
+    from lapgnn_tpu_torch.train import trainer
+    from lapgnn_tpu_torch.train.schedule import make_optimizer, warmup_cosine
+
+    mc = config["model"]
+    model = trainer.build_one_gnn(
+        int(mc["hidden"]), int(mc["layers"]), float(mc["dropout"] if dropout is None else dropout),
+        int(mc["topk"]), bool(mc.get("context", False)), 0, device)
+    trainer.load_params(model, init)
+    refine = bool(mc.get("use_cost_refinement", False))
+    oc = config["optimizer"]
+    opt = make_optimizer(trainer.trainable_parameters(model, refine),
+                         warmup_cosine(float(oc["lr"]), 1, 100), float(oc["weight_decay"]),
+                         float(oc["grad_clip"]))
+    return model, opt, refine
+
+
+@contextlib.contextmanager
+def _wrapped(owner, name, make):
+    """``owner.name`` replaced by ``make(original)`` inside the block: how the
+    train phase counts the real step's calls, cuts it at its stages and
+    keeps what it hands the greedy kernel, without a copy of the step."""
+    real = getattr(owner, name)
+    own = name in vars(owner)
+    setattr(owner, name, make(real))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(owner, name, real)
+        else:
+            delattr(owner, name)
+
+
+def _capture(calls):
+    """For ``_wrapped``: keep each call's arguments and result in ``calls``."""
+    def make(real):
+        def run(*args, **kwargs):
+            out = real(*args, **kwargs)
+            calls.append((args, out))
+            return out
+
+        return run
+
+    return make
+
+
+def _stage_ms(torch, step, model, opt, cost, u, gen):
+    """One call of the real train step ``step`` cut at its stages by CUDA
+    events recorded around the functions it calls: normalisation and
+    features (up to ``row_features``' return), forward, loss (with the
+    greedy kernel), backward (up to the optimizer's step), optimizer."""
+    from lapgnn_tpu_torch.train import trainer
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+
+    def marks(after, before=None):
+        def make(real):
+            def run(*args, **kwargs):
+                if before is not None:
+                    ev[before].record()
+                out = real(*args, **kwargs)
+                ev[after].record()
+                return out
+
+            return run
+
+        return make
+
+    with _wrapped(trainer, "row_features", marks(1)), _wrapped(model, "forward", marks(2)), \
+            _wrapped(trainer, "one_gnn_loss", marks(3)), _wrapped(opt, "step", marks(5, before=4)):
+        ev[0].record()
+        step(cost, u, gen)
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+
+def phase_train(torch, seed, train_data=None):
+    """The OneGNN training path on the card: ``train_progressive`` with
+    one_gnn_default's own config (hidden 192, 4 layers, top-k 16, cost
+    refinement, normalised costs and gap), warm-started from its weights,
+    one epoch over labelled synthetic instances at n = 512 / 1024 / 2048;
+    then the trained checkpoint served to a certified optimum, one step on
+    the card against the CPU, and the step's times.  ``train_data`` is what
+    ``_train_data_async(seed)()`` returns, labelled while an earlier phase
+    ran; without it the phase labels its own."""
+    import copy
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from lapgnn_tpu_torch.ops.cuda import greedy_total
+    from lapgnn_tpu_torch.ops.cuda.greedy import greedy_total_plain
+    from lapgnn_tpu_torch.pipeline import WarmStartPipeline
+    from lapgnn_tpu_torch.train import loss as loss_mod
+    from lapgnn_tpu_torch.train import progressive, trainer
+    from lapgnn_tpu_torch.train.checkpoint import build_model_from_meta, load_checkpoint
+
+    t_phase = time.perf_counter()
+    overlapped = train_data is not None
+    data, data_s, workers = train_data if overlapped else _train_data_async(seed)()
+    init, meta, _ = load_checkpoint(CHECKPOINT)
+    config = copy.deepcopy(meta["config"])
+    config["training"]["epochs"] = 1
+    specs = [progressive.DatasetSpec(f"synthetic_{n}", n, tr, val_instances=va or None)
+             for n, (tr, va) in data.items()]
+    flags = (bool(config["model"].get("use_cost_refinement", False)),
+             bool(config["loss"].get("normalize_gap", False)),
+             bool(config["loss"].get("normalize_costs", False)))
+
+    # count the steps and keep each step's batch shape and loss (a device
+    # tensor: no sync), not its batch, which would add to the peak memory
+    steps, evals = [], []
+
+    def counting(record):
+        def make(real):
+            def made(*a, **k):
+                step = real(*a, **k)
+
+                def counted(cost, *rest):
+                    out = step(cost, *rest)
+                    record.append((tuple(cost.shape), out))
+                    return out
+
+                return counted
+
+            return made
+
+        return make
+
+    logs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        config["checkpointing"]["output_dir"] = tmp
+        with _wrapped(progressive, "make_train_step", counting(steps)), \
+                _wrapped(progressive, "make_eval_step", counting(evals)):
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, history = progressive.train_progressive(config, specs, init_params=init,
+                                                       log_fn=logs.append)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = _read_launches()
+        out_dir = Path(tmp)
+        for d in ("best", "last"):
+            if not (out_dir / d / "params.msgpack").exists() or not (out_dir / d / "meta.json").exists():
+                raise AssertionError(f"train_progressive wrote no {d}/ checkpoint")
+        trained, trained_meta, opt_state = load_checkpoint(out_dir / "last", with_opt_state=True)
+
+    warm = logs[0].split()
+    loaded, total = (int(x) for x in warm[2].split("/"))
+    if warm[:2] != ["warm", "init:"] or loaded != total or total != len(_flat(init)):
+        raise AssertionError(f"warm start did not restore every leaf: {logs[0]!r}")
+    losses = [float(m["loss"]) for _, m in steps]
+    if not steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a train step's loss is not finite: {losses}")
+    moved = sum(not np.array_equal(a, _flat(init)[k]) for k, a in _flat(trained).items())
+    if moved == 0:
+        raise AssertionError("training left every parameter where it started")
+    if launches["greedy_total"] != len(steps) + len(evals):
+        raise AssertionError(
+            f"greedy kernel launched {launches['greedy_total']} times for {len(steps)} "
+            f"train steps and {len(evals)} validation batches")
+    if opt_state is None or opt_state["count"] != len(steps):
+        raise AssertionError("last/ holds no optimizer state of this run")
+
+    # serve what was trained: one uniform n = N_E2E instance, default device mode
+    C = _e2e_costs(seed + 1)["uniform"]
+    pipe = WarmStartPipeline(build_model_from_meta(trained_meta), trained, certify_tol=CERTIFY_TOL)
+    if pipe.mode != "device" or pipe.device.type != "cuda":
+        raise AssertionError("the default pipeline is not the device mode on the card")
+    t0 = time.perf_counter()
+    out = pipe.solve(C, certify=True)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    opt = _scipy_opt(C.astype(np.float64))
+    if not out["certified"].all() or not abs(float(out["cost"][0]) - opt) <= 1e-12 * max(1.0, abs(opt)):
+        raise AssertionError(f"the trained model's solve: {out['cost']} certified "
+                             f"{out['certified']} against SciPy {opt!r}")
+    serve = {"n": N_E2E, "cost": float(out["cost"][0]), "scipy": opt, "certified": True,
+             "route": ("polish" if out["polished"][0] else "repair" if out["repaired"][0] else "raw"),
+             "solve_ms_host_clock": serve_ms}
+
+    # one step on the card against the CPU: the smallest n, B = 4, dropout 0
+    n_small = TRAIN_SIZES[0][0]
+    cost, u = _tiled(torch, data[n_small][0], 4)
+    grads, vals, calls = {}, {}, []
+    for dev in ("cuda", "cpu"):
+        model, opt_, refine = _train_model(torch, config, init, dev, dropout=0.0)
+        named = [k for k, _ in model.named_parameters()
+                 if refine or not k.startswith(("edge_mlp.", "message_norm."))]
+        with _wrapped(loss_mod, "greedy_total", _capture(calls)):
+            loss, _, g = trainer.loss_and_grads(model, opt_.params, cost.to(dev), u.to(dev),
+                                                refine, flags[1], True, flags[2])
+        vals[dev] = float(loss.detach())
+        grads[dev] = {k: x.detach().cpu() for k, x in zip(named, g)}
+    rel = abs(vals["cuda"] - vals["cpu"]) / abs(vals["cpu"])
+    g_max = max(float(x.abs().max()) for x in grads["cpu"].values())
+    g_err = max(float((grads["cuda"][k] - grads["cpu"][k]).abs().max()) for k in grads["cpu"])
+    if rel > 1e-5 or g_err > 1e-4 * g_max + 1e-7:
+        raise AssertionError(f"card against CPU: loss rel {rel}, gradient err {g_err} (max |g| {g_max})")
+    # the CPU step's greedy arguments through the kernel on the card
+    cpu_args, gb_cpu = calls[-1]
+    gb_card = greedy_total(*(None if a is None else a.cuda() for a in cpu_args)).cpu()
+    del calls, cpu_args
+    if not torch.equal(gb_card.view(torch.int32), gb_cpu.view(torch.int32)):
+        raise AssertionError("greedy bound on the card differs from the CPU's")
+    card_vs_cpu = {"batch": 4, "n": n_small, "loss_rel_err": rel, "grad_max_abs_err": g_err,
+                   "grad_tol": 1e-4 * g_max + 1e-7, "greedy_bound_bit_equal": True}
+
+    # times: a step, its stages; the greedy kernel against its plain loop on
+    # the arguments the step hands it, bit for bit
+    model, opt_, refine = _train_model(torch, config, init, "cuda")
+    step = trainer.make_train_step(model, opt_, refine, flags[1], True, flags[2])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    no_flush = torch.empty(1, dtype=torch.float32, device="cuda")
+    step_ms, stage_ms, greedy = {}, {}, {}
+    stage_names = ("features", "forward", "loss_with_greedy", "backward", "optimizer")
+    peak, greedy_err = None, 0.0
+    for B, n in TRAIN_TIMED:
+        key = f"{B}x{n}"
+        cost, u = _tiled(torch, data[n][0], B)
+        step(cost, u, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[key] = _ms_host(torch, lambda: step(cost, u, gen), 3)
+        if (B, n) == TRAIN_TIMED[-1]:
+            peak = torch.cuda.max_memory_allocated()
+        cuts = [_stage_ms(torch, step, model, opt_, cost, u, gen) for _ in range(3)]
+        stage_ms[key] = {name: statistics.median(c[i] for c in cuts)
+                         for i, name in enumerate(stage_names)}
+        calls = []
+        with _wrapped(loss_mod, "greedy_total", _capture(calls)):
+            step(cost, u, gen)
+        (red, c_n, order, valid), got = calls[0]
+        bound, by = _bound_ms("greedy_total", B, n, n)
+        t0 = time.perf_counter()
+        want = greedy_total_plain(red, c_n, order, valid)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"greedy kernel differs from its plain loop in the step at {key}")
+        err = _max_abs_err(torch, got, want)
+        greedy_err = max(greedy_err, err)
+        rows, _ = _profile(torch, lambda: greedy_total_plain(red, c_n, order, valid))
+        greedy[key] = {
+            "batch": B, "n": n, "bit_equal": True, "max_abs_err": err,
+            "ms": _time_ms(torch, lambda: greedy_total(red, c_n, order, valid), 5, flush),
+            "plain_ms": plain_ms,
+            "plain_launches": sum(r[2] for r in rows) if rows else "not measured",
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "serial_floor_ms": _time_ms(
+                torch, lambda: greedy_total(red[:1], c_n[:1], order[:1],
+                                            None if valid is None else valid[:1]), 5, no_flush),
+        }
+        del cost, u, red, c_n, order, valid, got, want, calls
+        torch.cuda.empty_cache()
+
+    report = {
+        "phase": "train", "config_width": {k: config["model"][k] for k in ("hidden", "layers", "topk")},
+        "data_seconds": data_s, "data_workers": workers, "data_labelled_during_compare": overlapped,
+        "instances": {n: [len(tr), len(va)] for n, (tr, va) in data.items()},
+        "train_seconds": train_s, "steps": len(steps),
+        "step_shapes": [list(sh) for sh, _ in steps], "validation_batches": len(evals),
+        "step_losses": losses, "history": history, "log": logs,
+        "leaves_moved": moved, "launches": launches, "serve": serve, "card_vs_cpu": card_vs_cpu,
+        "step_ms_host_clock": step_ms, "stage_ms": stage_ms,
+        "max_memory_allocated_bytes": {f"{TRAIN_TIMED[-1][0]}x{TRAIN_TIMED[-1][1]}": peak},
+        "greedy": greedy,
+        "greedy_launches_per_train_step": (launches["greedy_total"] - len(evals)) / len(steps),
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    _emit(report)
+    last = f"{TRAIN_TIMED[-1][0]}x{TRAIN_TIMED[-1][1]}"
+    return {"launches": launches["greedy_total"], **greedy[last], "max_abs_err": greedy_err,
+            **{f"at_{k}": v for k, v in greedy.items() if k != last}}
+
+
 def _time_ms(torch, fn, reps, flush, queued=True, flush_by_read=False):
     """Median CUDA-event time of ``fn`` with L2 flushed before each launch:
     by ``flush.zero_()``, which leaves L2 full of dirty lines that the timed
@@ -1310,7 +1776,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="comma-separated subset of build,compare,times,stream (no ok line)")
+                    help="comma-separated subset of build,compare,times,stream,train (no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -1335,19 +1801,28 @@ def main() -> int:
             subset = {"build": lambda: phase_build(torch, strict=False),
                       "compare": lambda: phase_compare(torch, args.seed),
                       "times": lambda: phase_times(torch, args.seed),
-                      "stream": lambda: phase_stream(torch, args.seed)}
+                      "stream": lambda: phase_stream(torch, args.seed),
+                      "train": lambda: phase_train(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
             return 0
         phase_build(torch)
-        errs = phase_compare(torch, args.seed)
+        # label the train phase's instances on the host's cores while the
+        # compare phase keeps the card busy; the pool is gone before any
+        # host-clock time is taken
+        collect = _train_data_async(args.seed)
+        try:
+            errs = phase_compare(torch, args.seed)
+        finally:
+            train_data = collect()
         pipe, c_uniform = phase_e2e(torch, args.seed)
         phase_breakdown(torch, pipe, c_uniform)
         launches, dpipe, costs = phase_device_e2e(torch, args.seed)
         phase_device_vs_cpu(torch, dpipe, args.seed)
         phase_device_breakdown(torch, dpipe, costs["uniform"])
         phase_stream(torch, args.seed)
+        train = phase_train(torch, args.seed, train_data)
         times = phase_times(torch, args.seed)
     except Exception:
         traceback.print_exc()
@@ -1356,6 +1831,14 @@ def main() -> int:
 
     kernels = []
     for kname, info in KERNELS.items():
+        if kname == "greedy_total":
+            # the training path's kernel: launches from the train phase, times
+            # at its (16, 2048) batch, then (32, 512) and (32, 1024); the error
+            # over the compare phase and the train phase's real arguments
+            kernels.append({"name": kname, **info, **train,
+                            "max_abs_err": max(errs[kname], train["max_abs_err"]),
+                            "card": card})
+            continue
         t = times[kname]
         kernels.append({
             "name": kname, **info,

@@ -1,1 +1,2 @@
-"""Cost-matrix families (numpy only)."""
+"""Cost-matrix families, labelled synthetic instances and HDF5 dataset IO
+(numpy, SciPy; ``h5py`` only when a file is opened)."""

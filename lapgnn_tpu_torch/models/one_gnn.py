@@ -10,7 +10,15 @@ The submodules follow the original PyTorch OneGNN's layout (``input_proj``
 ``edge_mlp`` = Linear, GELU, Linear), so its state dicts load directly and
 ``lapgnn_tpu/train/convert_torch.py`` maps them to the flax tree; the flax
 names are given beside each attribute.  ``train.convert.params_from_flax``
-is the inverse map.
+and ``params_to_flax`` convert between the two.
+
+Dropout runs where the flax model's ``deterministic=False`` runs it (twice in
+each block, on the top-k message, in the head), and only when the caller
+passes a ``torch.Generator`` (``forward(..., generator=g)``): the masks are
+drawn from it, never from the global RNG, as flax draws them from the
+``dropout`` key; flax's own bits cannot be reproduced.  Without a generator
+the forward is deterministic (flax's ``deterministic=True``), whatever the
+module's ``training`` flag says.
 """
 
 from __future__ import annotations
@@ -22,9 +30,24 @@ from torch import nn
 
 from ..ops.dual import center_gauge
 
-__all__ = ["OneGNN", "ResidualBlock"]
+__all__ = ["OneGNN", "ResidualBlock", "dropout"]
 
 _LN_EPS = 1e-5
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep an entry with probability ``1 - rate`` (a
+    uniform draw below it) and scale it by ``1 / (1 - rate)``; the identity
+    without a generator or at rate 0, zeros at rate 1."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 class ResidualBlock(nn.Module):
@@ -35,20 +58,22 @@ class ResidualBlock(nn.Module):
         self.fc1 = nn.Linear(hidden, hidden)
         self.fc2 = nn.Linear(hidden, hidden)
         self.norm = nn.LayerNorm(hidden, eps=_LN_EPS)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.drop(nn.functional.gelu(self.fc1(x), approximate="none"))
-        y = self.drop(self.fc2(y))
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        y = dropout(nn.functional.gelu(self.fc1(x), approximate="none"), self.dropout, generator)
+        y = dropout(self.fc2(y), self.dropout, generator)
         return self.norm(x + y)
 
 
 class OneGNN(nn.Module):
     """Row-dual predictor.
 
-    ``forward(row_feat, cost=None)``: row_feat (B, n, F) or (n, F); cost
-    (B, n, n) activates the top-k refinement.  Returns {"u": (B, n)},
-    mean-centered per instance.
+    ``forward(row_feat, cost=None, generator=None)``: row_feat (B, n, F) or
+    (n, F); cost (B, n, n) activates the top-k refinement; a generator turns
+    dropout on.  Returns {"u": (B, n)}, mean-centered per instance.
 
     ``context=True`` (the DeepSets global context) and ``topk_impl="iter"``
     (the sharded top-k) are not ported yet; ``artifacts/one_gnn_default``
@@ -76,6 +101,7 @@ class OneGNN(nn.Module):
             )
         self.hidden = hidden
         self.layers = layers
+        self.dropout = dropout
         self.topk = topk
         head_hidden = max(hidden // 2, 1)
         # flax: input_proj (Dense) + input_norm (LayerNorm)
@@ -87,10 +113,11 @@ class OneGNN(nn.Module):
         self.blocks = nn.ModuleList(ResidualBlock(hidden, dropout) for _ in range(layers))
         # flax: pre_out
         self.pre_out = nn.Linear(hidden, 1)
-        # flax: head_fc1, head_fc2
+        # flax: head_fc1, head_fc2; the head's dropout (index 2) is applied
+        # in ``forward`` with the caller's generator
         self.row_out = nn.Sequential(
             nn.Linear(hidden, head_hidden), nn.GELU(approximate="none"),
-            nn.Dropout(dropout), nn.Linear(head_hidden, 1),
+            nn.Identity(), nn.Linear(head_hidden, 1),
         )
         # flax: edge_fc1, edge_fc2
         self.edge_mlp = nn.Sequential(
@@ -98,24 +125,32 @@ class OneGNN(nn.Module):
         )
         # flax: message_norm
         self.message_norm = nn.LayerNorm(hidden, eps=_LN_EPS)
-        self.message_drop = nn.Dropout(dropout)
 
     def forward(
-        self, row_feat: torch.Tensor, cost: Optional[torch.Tensor] = None
+        self,
+        row_feat: torch.Tensor,
+        cost: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> dict:
         if row_feat.ndim == 2:
             row_feat = row_feat[None]
         h = self.input_proj(row_feat)
         for block in self.blocks:
-            h = block(h)
+            h = block(h, generator)
         u_pre = self.pre_out(h)[..., 0]
         if cost is not None:
-            h = h + self._sparse_refine(h, cost, u_pre)
-        u = self.row_out(h)[..., 0]
+            h = h + self._sparse_refine(h, cost, u_pre, generator)
+        head_fc1, gelu, _, head_fc2 = self.row_out
+        y = dropout(gelu(head_fc1(h)), self.dropout, generator)
+        u = head_fc2(y)[..., 0]
         return {"u": center_gauge(u)}
 
     def _sparse_refine(
-        self, h: torch.Tensor, cost: torch.Tensor, u_pre: torch.Tensor
+        self,
+        h: torch.Tensor,
+        cost: torch.Tensor,
+        u_pre: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Top-k smallest reduced-cost aggregation: softmax of the negated
         k smallest entries of (C - u_pre) weights an edge-MLP embedding of
@@ -135,4 +170,4 @@ class OneGNN(nn.Module):
         edge_in = torch.where(valid, values, 0.0)[..., None]  # (B, n, k, 1)
         e = self.edge_mlp(edge_in)  # (B, n, k, H)
         message = (weights[..., None] * e).sum(-2)
-        return self.message_norm(self.message_drop(message))
+        return self.message_norm(dropout(message, self.dropout, generator))

@@ -3,9 +3,10 @@ versions and launch counters."""
 
 from .colmin import col_min, min_trick
 from .features import row_features_stats
+from .greedy import greedy_total
 from .twomin import two_min
 
-__all__ = ["col_min", "min_trick", "row_features_stats", "two_min", "WRAPPERS"]
+__all__ = ["col_min", "greedy_total", "min_trick", "row_features_stats", "two_min", "WRAPPERS"]
 
 # Every kernel wrapper; each counts its launches in ``.launches``.
-WRAPPERS = (col_min, min_trick, row_features_stats, two_min)
+WRAPPERS = (col_min, min_trick, row_features_stats, two_min, greedy_total)

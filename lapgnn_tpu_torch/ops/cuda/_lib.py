@@ -66,12 +66,18 @@ def _bind_twomin(lib: ctypes.CDLL) -> None:
     ]
 
 
+def _bind_greedy(lib: ctypes.CDLL) -> None:
+    lib.lapgnn_greedy_total.restype = _I
+    lib.lapgnn_greedy_total.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP]
+
+
 KERNEL_LIBS: Dict[str, SharedLibrary] = {
     "colmin": SharedLibrary(CSRC / "colmin.cu", "kernels", _nvcc_command, _bind_colmin),
     "features": SharedLibrary(
         CSRC / "features.cu", "kernels", _nvcc_command, _bind_features
     ),
     "twomin": SharedLibrary(CSRC / "twomin.cu", "kernels", _nvcc_command, _bind_twomin),
+    "greedy": SharedLibrary(CSRC / "greedy.cu", "kernels", _nvcc_command, _bind_greedy),
 }
 
 

@@ -29,6 +29,8 @@ tests.
 
 from __future__ import annotations
 
+import functools
+import sys
 from dataclasses import dataclass
 
 import torch
@@ -42,6 +44,7 @@ __all__ = [
     "median_from_padded",
     "pad_to_tile",
     "row_features_geometry",
+    "row_features_max_m",
     "row_features_stats",
     "row_features_stats_plain",
     "selections_padded",
@@ -327,16 +330,30 @@ def _launch(Cb: torch.Tensor, colmin: torch.Tensor, geometry: RowFeaturesGeometr
     return out
 
 
-def _shared_limit(device: torch.device) -> int:
-    """Shared memory a block of the shared path may use on this card."""
+def row_features_max_m(device: torch.device) -> int:
+    """The longest row the statistics take on ``device``: the kernel's
+    shared-memory path's limit on a CUDA device (about 58K columns on an
+    H100), none (``sys.maxsize``) for the plain version on the CPU."""
+    if device.type == "cpu":
+        return sys.maxsize
+    return _kernel_max_m(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_max_m(index: int) -> int:
     from ._lib import KERNEL_LIBS, check
 
     lib = KERNEL_LIBS["features"].load()
-    with torch.cuda.device(device):
-        max_m = lib.lapgnn_row_features_max_m(device.index or 0)
+    with torch.cuda.device(index):
+        max_m = lib.lapgnn_row_features_max_m(index)
     if max_m < 0:
         check(-max_m, "row_features_stats shared-memory query")
-    return 4 * max_m + SHARED_PATH_STATIC_BYTES
+    return max_m
+
+
+def _shared_limit(device: torch.device) -> int:
+    """Shared memory a block of the shared path may use on this card."""
+    return 4 * row_features_max_m(device) + SHARED_PATH_STATIC_BYTES
 
 
 def stats_kernel(

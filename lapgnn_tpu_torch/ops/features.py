@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from .cuda.features import row_features_stats
+from .cuda.features import row_features_max_m, row_features_stats
 
 __all__ = [
     "POS_FREQS",
@@ -154,10 +154,15 @@ def row_features(C: torch.Tensor) -> torch.Tensor:
 
 def fast_row_features(C: torch.Tensor) -> torch.Tensor:
     """21-D row features with the statistics from kernel K3 (which runs K1
-    inside) on a CUDA tensor, at every n; a CPU tensor takes K3's plain
-    version.  The TPU router's size gates and its opt-out switch are dropped:
-    they were measured on a TPU, and the port has no switch that turns a
-    kernel off."""
+    inside) on a CUDA tensor; a CPU tensor takes K3's plain version.  Rows
+    longer than K3 takes on this device (``row_features_max_m``: its
+    shared-memory path's limit, about 58K columns on an H100) go to the
+    sort-based ``row_features``, as the JAX router sends every shape outside
+    its gate there.  The TPU router's other size gates and its opt-out switch
+    are dropped: they were measured on a TPU, and the port has no switch that
+    turns a kernel off."""
+    if C.shape[-1] > row_features_max_m(C.device):
+        return row_features(C)
     squeeze = C.ndim == 2
     Cb = (C[None] if squeeze else C).contiguous()
     B, n, _ = Cb.shape

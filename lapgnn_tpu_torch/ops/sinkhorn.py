@@ -37,17 +37,36 @@ COLD_FINISH_MIN_N = 4096
 
 def _robust_scale(cost: torch.Tensor) -> torch.Tensor:
     """Per-instance spread q90 - q10 on a strided subsample of <= 65536
-    entries, floored at 1e-6.  ``torch.quantile`` interpolates linearly, as
-    ``jnp.quantile`` does by default."""
+    entries, floored at 1e-6."""
     n_r, n_c = cost.shape[-2], cost.shape[-1]
     red = 1
     while (n_r // red) * (n_c // red) > 65536:
         red *= 2
     sample = cost[..., ::red, ::red].reshape(cost.shape[0], -1)
-    q = torch.quantile(
-        sample, torch.tensor([0.1, 0.9], dtype=sample.dtype, device=sample.device), dim=-1
-    )
+    q = _quantiles(sample, (0.1, 0.9))
     return torch.clamp_min(q[1] - q[0], 1e-6)
+
+
+def _quantiles(a: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
+    """Linear-interpolated quantiles of the rows of ``a``, (len(qs), B), in
+    ``jnp.quantile``'s arithmetic: a row holding a NaN is all NaN, the
+    position is q * (N - 1), the weights are ``hi_w = pos - floor(pos)`` and
+    ``lo_w = 1 - hi_w``, the result ``lo * lo_w + hi * hi_w`` rounded to the
+    input's dtype.  The position and the interpolation run in float64, as
+    ``jnp.quantile`` runs them on a float64 ``q`` (JAX with x64 on, as its
+    tests run); with x64 off JAX computes them in float32, which can round
+    the result one ulp apart."""
+    m = a.shape[-1]
+    a = torch.where(torch.isnan(a).any(-1, keepdim=True), torch.nan, a)
+    srt = torch.sort(a, dim=-1).values
+    pos = torch.tensor(qs, dtype=torch.float64, device=a.device) * float(m - 1)
+    lo_i = torch.floor(pos).clamp(0, m - 1).long()
+    hi_i = torch.ceil(pos).clamp(0, m - 1).long()
+    hi_w = (pos - torch.floor(pos))[:, None]
+    lo_w = 1.0 - hi_w
+    lo = srt[:, lo_i].T.to(torch.float64)
+    hi = srt[:, hi_i].T.to(torch.float64)
+    return (lo * lo_w + hi * hi_w).to(a.dtype)
 
 
 def sinkhorn_refine(

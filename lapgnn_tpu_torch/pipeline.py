@@ -478,17 +478,23 @@ class WarmStartPipeline:
 
     def _solve_host_route(self, cost64: np.ndarray, certify: bool) -> Dict[str, np.ndarray]:
         """Host route: cold native JV up to ``route_native_max_n``, SciPy
-        above it; float64 end to end."""
+        above it; float64 end to end.  When the native solver fails in any
+        way (no compiler, a library that does not load, a solve error),
+        SciPy answers the rest of the batch, as in the JAX pipeline."""
         import scipy.optimize
 
         from .solver.native import lapjv_native
 
         B, n, _ = cost64.shape
         xs, cs = [], []
+        use_native = n <= self.route_native_max_n
         for b in range(B):
-            if n <= self.route_native_max_n:
-                x, _, c = lapjv_native(cost64[b])
-            else:
+            if use_native:
+                try:
+                    x, _, c = lapjv_native(cost64[b])
+                except Exception:  # the JAX pipeline's catch
+                    use_native = False
+            if not use_native:
                 _, x = scipy.optimize.linear_sum_assignment(cost64[b])
                 c = float(cost64[b][np.arange(n), x].sum())
             xs.append(np.asarray(x, np.int64))

@@ -1,14 +1,20 @@
-"""Checkpoint loading: ``meta.json`` + flax-serialised ``params.msgpack``.
+"""Checkpoints: ``meta.json`` + flax-serialised ``params.msgpack``.
 
-Port of ``lapgnn_tpu/train/checkpoint.py`` (``load_checkpoint`` :44 and the
-``one_gnn`` branch of ``build_model_from_meta`` :107).  The directory format
-is unchanged, so checkpoints stay interchangeable.
+Port of ``lapgnn_tpu/train/checkpoint.py`` (``save_checkpoint`` :30,
+``load_checkpoint`` :44, ``merge_params`` :66 and the ``one_gnn`` branch of
+``build_model_from_meta`` :107).  The directory format is unchanged, so
+checkpoints stay interchangeable: the JAX package loads what the port
+writes and the other way round.
 
 ``params.msgpack`` is msgpack as ``flax.serialization`` writes it: nested
 maps with string keys, each array an ext value of type 1 whose payload is
 itself msgpack, ``[shape, dtype name, raw C-order bytes]``.  The port
-carries its own small reader (``msgpack_restore``) so that it needs neither
-the ``msgpack`` package nor flax.
+carries its own small writer (``msgpack_serialize``, byte-equal to
+``flax.serialization.msgpack_serialize`` of the same tree) and reader
+(``msgpack_restore``), so that it needs neither the ``msgpack`` package nor
+flax.  The optimizer state is the port's own file, ``opt_state.pt``
+(``torch.save``), where the JAX package writes ``opt_state.msgpack``: the
+two optimizers' states have different shapes.
 """
 
 from __future__ import annotations
@@ -20,12 +26,132 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["msgpack_restore", "load_checkpoint", "build_model_from_meta"]
+__all__ = [
+    "build_model_from_meta",
+    "load_checkpoint",
+    "merge_params",
+    "msgpack_restore",
+    "msgpack_serialize",
+    "save_checkpoint",
+]
 
 # flax.serialization._MsgpackExtType
 _EXT_NDARRAY = 1
 _EXT_COMPLEX = 2
 _EXT_NPSCALAR = 3
+# flax.serialization.MAX_CHUNK_SIZE: flax splits larger arrays into chunks
+_MAX_CHUNK_BYTES = 2**30
+
+
+class _Writer:
+    """Encoder for what flax writes: maps with string keys (sorted), arrays
+    as ext values, and inside an array's payload a list, ints, a str and
+    bin; every value in msgpack's shortest form, as the ``msgpack`` package
+    packs it (``use_bin_type=True``)."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def _size(self, n: int, c8, c16, c32) -> None:
+        if c8 is not None and n <= 0xFF:
+            self.out += struct.pack(">BB", c8, n)
+        elif n <= 0xFFFF:
+            self.out += struct.pack(">BH", c16, n)
+        else:
+            self.out += struct.pack(">BI", c32, n)
+
+    def _int(self, x: int) -> None:
+        if 0 <= x <= 0x7F:
+            self.out.append(x)
+        elif -32 <= x < 0:
+            self.out.append(0x100 + x)
+        elif x > 0:
+            for code, fmt, top in ((0xCC, ">BB", 0xFF), (0xCD, ">BH", 0xFFFF),
+                                   (0xCE, ">BI", 0xFFFFFFFF), (0xCF, ">BQ", 2**64 - 1)):
+                if x <= top:
+                    self.out += struct.pack(fmt, code, x)
+                    return
+            raise OverflowError(f"int {x} too large for msgpack")
+        else:
+            for code, fmt, bottom in ((0xD0, ">Bb", -(2**7)), (0xD1, ">Bh", -(2**15)),
+                                      (0xD2, ">Bi", -(2**31)), (0xD3, ">Bq", -(2**63))):
+                if x >= bottom:
+                    self.out += struct.pack(fmt, code, x)
+                    return
+            raise OverflowError(f"int {x} too small for msgpack")
+
+    def _str(self, x: str) -> None:
+        b = x.encode("utf-8")
+        if len(b) <= 31:
+            self.out.append(0xA0 | len(b))
+        else:
+            self._size(len(b), 0xD9, 0xDA, 0xDB)
+        self.out += b
+
+    def _ext(self, code: int, payload: bytes) -> None:
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(payload) in fixed:
+            self.out.append(fixed[len(payload)])
+        else:
+            self._size(len(payload), 0xC7, 0xC8, 0xC9)
+        self.out += struct.pack(">b", code) + payload
+
+    def write(self, x: Any) -> None:
+        if x is None:
+            self.out.append(0xC0)
+        elif isinstance(x, bool):
+            self.out.append(0xC3 if x else 0xC2)
+        elif isinstance(x, int):
+            self._int(x)
+        elif isinstance(x, float):
+            self.out += struct.pack(">Bd", 0xCB, x)
+        elif isinstance(x, str):
+            self._str(x)
+        elif isinstance(x, (bytes, bytearray)):
+            self._size(len(x), 0xC4, 0xC5, 0xC6)
+            self.out += x
+        elif isinstance(x, (list, tuple)):
+            if len(x) <= 15:
+                self.out.append(0x90 | len(x))
+            else:
+                self._size(len(x), None, 0xDC, 0xDD)
+            for item in x:
+                self.write(item)
+        elif isinstance(x, dict):
+            if len(x) <= 15:
+                self.out.append(0x80 | len(x))
+            else:
+                self._size(len(x), None, 0xDE, 0xDF)
+            if not all(isinstance(k, str) for k in x):
+                raise TypeError(f"msgpack_serialize: map keys must be str, got {list(x)}")
+            for k in sorted(x):
+                self._str(k)
+                self.write(x[k])
+        elif isinstance(x, np.ndarray):
+            self._ext(_EXT_NDARRAY, _ndarray_to_bytes(x))
+        elif isinstance(x, np.generic):
+            self._ext(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
+        else:
+            raise TypeError(f"msgpack_serialize: cannot encode {type(x).__name__}")
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be serialised")
+    if arr.nbytes > _MAX_CHUNK_BYTES:
+        raise NotImplementedError("chunked (> 1 GiB) arrays are not supported")
+    w = _Writer()
+    w.write([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    return bytes(w.out)
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode a tree of dicts (str keys) and numpy arrays as
+    ``flax.serialization.msgpack_serialize`` encodes it, byte for byte: each
+    map's keys sorted, as JAX's tree utilities leave them."""
+    w = _Writer()
+    w.write(tree)
+    return bytes(w.out)
 
 
 class _Reader:
@@ -147,13 +273,67 @@ def _has_chunked(tree: Any) -> bool:
     return False
 
 
-def load_checkpoint(path) -> Tuple[Any, Dict[str, Any], Optional[Any]]:
-    """Returns (params, meta, None): the raw parameter tree, as the JAX
-    loader returns without a template.  Optimizer state is not loaded."""
+def save_checkpoint(path, params, meta: Dict[str, Any], opt_state=None) -> None:
+    """Write ``meta.json`` and ``params.msgpack`` (a flax tree of numpy
+    arrays, as ``train.convert.params_to_flax`` gives it) into ``path``, and
+    ``opt_state.pt`` when an optimizer state (``AdamW.state_dict()``) is
+    given."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "meta.json").write_text(json.dumps(meta, indent=2, default=str))
+    (path / "params.msgpack").write_bytes(msgpack_serialize(params))
+    if opt_state is not None:
+        import torch
+
+        torch.save(opt_state, path / "opt_state.pt")
+
+
+def load_checkpoint(path, with_opt_state: bool = False) -> Tuple[Any, Dict[str, Any], Optional[Any]]:
+    """Returns (params, meta, opt_state): the raw parameter tree, as the JAX
+    loader returns without a template, and the port's optimizer state from
+    ``opt_state.pt`` when ``with_opt_state`` and the file exists (else
+    None)."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     params = msgpack_restore((path / "params.msgpack").read_bytes())
-    return params, meta, None
+    opt_state = None
+    opt_path = path / "opt_state.pt"
+    if with_opt_state and opt_path.exists():
+        import torch
+
+        opt_state = torch.load(opt_path, weights_only=True)
+    return params, meta, opt_state
+
+
+def merge_params(fresh, loaded):
+    """Warm-init merge: onto a freshly initialised tree, every leaf of
+    ``loaded`` whose path exists in ``fresh`` with the same shape; the fresh
+    value everywhere else (new submodules, changed heads).  Returns
+    ``(merged, n_loaded, n_total)``."""
+    n_loaded = 0
+    n_total = 0
+
+    def walk(f, l):
+        nonlocal n_loaded, n_total
+        if isinstance(f, dict):
+            return {
+                k: walk(v, l[k]) if isinstance(l, dict) and k in l else count(v)
+                for k, v in f.items()
+            }
+        n_total += 1
+        if hasattr(f, "shape") and hasattr(l, "shape") and tuple(np.shape(f)) == tuple(np.shape(l)):
+            n_loaded += 1
+            return l
+        return f
+
+    def count(v):
+        nonlocal n_total
+        if isinstance(v, dict):
+            return {k: count(x) for k, x in v.items()}
+        n_total += 1
+        return v
+
+    return walk(fresh, loaded), n_loaded, n_total
 
 
 def build_model_from_meta(meta: Dict[str, Any]):

@@ -294,6 +294,49 @@ def test_sinkhorn_cold_finish_rung_at_large_n(monkeypatch):
     assert seen == [32, 32]
 
 
+@pytest.mark.parametrize("fam", sorted(FAMILIES))
+def test_robust_scale_matches_jax(fam):
+    """Bit-equal to ``jnp.quantile`` as the tests run JAX (x64 on: the
+    interpolation in float64, rounded to float32); with x64 off JAX
+    interpolates in float32, within 4 ulp of the spread (up to 3 found)."""
+    import jax
+
+    for n in (64, 300, 1024):
+        C = np.stack([_cost(fam, n, s) for s in (0, 1)])
+        got = tsink._robust_scale(_t(C)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jsink._robust_scale(jnp.asarray(C))))
+        with jax.enable_x64(False):
+            want32 = np.asarray(jsink._robust_scale(jnp.asarray(C)))
+        np.testing.assert_allclose(got, want32, rtol=4 * 2.0**-23, atol=0)
+
+
+def test_quantiles_interpolate_and_propagate_nan():
+    x = torch.tensor([[3.0, 1.0, 2.0, 4.0, 0.0], [1.0, float("nan"), 2.0, 3.0, 4.0]])
+    q = tsink._quantiles(x, (0.1, 0.9))
+    np.testing.assert_array_equal(q[:, 0].numpy(), np.float32([0.4, 3.6]))
+    assert torch.isnan(q[:, 1]).all()
+
+
+def test_fast_row_features_routes_rows_past_the_kernel_limit(monkeypatch):
+    """Rows longer than K3 takes on the device go to the sort-based
+    ``row_features`` (the JAX router's gate); shorter rows take K3's path.
+    The limit is lowered to 8 columns so the decision shows on the CPU."""
+    import sys
+
+    assert tfeat.row_features_max_m(torch.device("cpu")) == sys.maxsize
+    calls = []
+    monkeypatch.setattr(tfeat, "row_features_max_m", lambda device: 8)
+    monkeypatch.setattr(tfeat, "row_features_stats",
+                        lambda C: calls.append(C.shape) or row_features_stats(C))
+    long_rows = _t(np.stack([_cost("uniform", 12, s) for s in (0, 1)])[:, :5, :])
+    got = tfeat.fast_row_features(long_rows)
+    assert calls == []
+    np.testing.assert_array_equal(got.numpy(), tfeat.row_features(long_rows).numpy())
+    short_rows = _t(_cost("tie", 8, 3))
+    tfeat.fast_row_features(short_rows)
+    assert calls == [(1, 8, 8)]
+
+
 @pytest.mark.parametrize("fam", SEED_FAMS)
 def test_auto_select_seed_matches_jax(fam):
     """The selected pair's dual objective agrees to 1e-4 relative (the

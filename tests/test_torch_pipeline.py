@@ -196,6 +196,35 @@ def test_batched_solve_and_host_route():
         assert out["certified"].all()
 
 
+@pytest.mark.parametrize("mode", ["hybrid", "device"])
+def test_host_route_answers_with_scipy_when_the_native_solver_fails(monkeypatch, mode):
+    """With the native library unavailable (no compiler in hybrid mode, a
+    library that does not load in device mode), ``route="host"`` answers
+    every instance of the batch with SciPy's optimum, as the JAX pipeline
+    does, instead of raising."""
+    from lapgnn_tpu_torch.solver import native
+
+    error = native.NativeSolveError if mode == "hybrid" else OSError
+
+    def unavailable():
+        raise error("native library unavailable")
+
+    monkeypatch.setattr(native, "_lib", unavailable)
+    with pytest.raises(error):
+        lapjv_native(np.eye(3))
+    params, meta, _ = load_checkpoint(CKPT)
+    C = np.stack([_cost("uniform", 40, 8), _cost("tie", 40, 9), _cost("sparse", 40, 10)])
+    pipe = WarmStartPipeline(build_model_from_meta(meta), params, mode=mode, route="host",
+                             device="cpu")
+    out = pipe.solve(torch.from_numpy(C), certify=True)
+    assert out["routed_host"].all() and out["certified"].all()
+    for b in range(3):
+        want = _scipy_cost(C[b])
+        assert abs(out["cost"][b] - want) <= 1e-12 * max(1.0, want)
+        _, x = scipy.optimize.linear_sum_assignment(C[b].astype(np.float64))
+        np.testing.assert_array_equal(out["col_of_row"][b], x)
+
+
 def test_native_solvers_and_certificate_match_jax():
     C = _cost("tie", 50, 10).astype(np.float64)
     x, y, c, u, v = lapjv_native(C, return_duals=True)

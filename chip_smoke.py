@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream,train]
+    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream,train,eval]
 
 ``--phases`` runs a subset (for a first look at a changed kernel,
 ``build,stream`` after a change to the transfer layer, ``build,train`` after
-one to the training path) and then prints no ``ok`` line; with no arguments
-every phase runs.
+one to the training path, ``build,eval`` after one to the evaluation path)
+and then prints no ``ok`` line; with no arguments every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -81,7 +81,27 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      memory at (16, 2048), and, on the arguments the real step hands it at
      each of those shapes, the greedy kernel bit for bit against its plain
      loop, with both times, the loop's launches and the kernel's bound.
-  9. Times: each kernel and its plain version at n = 2048 and 8192 beside
+  9. Eval: the accuracy ladder (``cli.accuracy_ladder.ladder``, one
+     ``evaluation.evaluate_pipeline`` a family and model) of OneGNN
+     (``artifacts/one_gnn_default``, hybrid mode) against DualGNN
+     (``artifacts/dual_gnn_r5``: hidden 256, 6 layers, 4 heads, its full
+     width, through ``DualGNNPredictor``), both ``seed_mode="auto"``, on 4
+     labelled instances of each of the 8 families at n = 512 (labelled in
+     the train phase's pool while ``compare`` runs): a JSON line a (model,
+     family) with the published r5 gap beside it, every metric finite,
+     every instance feasible and assisted, the launch counters, zeroed just
+     before, showing K1, K2, K3 and the greedy kernel, and each of those
+     kernels' calls there held against its plain version on the arguments
+     the path gave it (K1, K2 and the greedy bound bit for bit, K3 within
+     rtol 2e-5 / atol 2e-6 with its selection channels bit-equal).  The
+     timing branch (``time_solvers=True``) on 2 uniform instances;
+     ``graph_features`` and
+     the r5 forward on the card against the port on the CPU at n = 512
+     (rank, gap and tie channels bit-equal; u and v_hint within
+     1e-4·max(1, max|u|)); ``graph_features`` and forward ms at n = 512 and
+     2048 beside the forward's bound, and the peak memory of the forward.
+     At most 60 s.
+ 10. Times: each kernel and its plain version at n = 2048 and 8192 beside
      its bound (the larger of the bytes it must move over the HBM rate and
      the float32 operations over the card's float32 rate).  Median of
      CUDA-event timings, all reps queued behind a spin kernel so the host's
@@ -163,6 +183,21 @@ KERNELS = {
 TRAIN_SIZES = ((512, 32, 8), (1024, 8, 0), (2048, 2, 0))  # (n, train, val)
 TRAIN_TIMED = ((32, 512), (32, 1024), (16, 2048))  # (B, n) of the step times
 GREEDY_SIZES = (1, 7, 512, 1024, 2048, 4097)
+# The eval phase: the accuracy ladder at the size dual_gnn_r5 was trained and
+# evaluated at, the forward timed there and at the reference's DualGNN cap.
+DUAL_CHECKPOINT = Path(__file__).resolve().parent / "artifacts" / "dual_gnn_r5"
+EVAL_N = 512
+EVAL_PER_FAMILY = 4
+EVAL_TIMED_N = (512, 2048)
+EVAL_PHASE_LIMIT_S = 60.0
+# docs/ACCURACY_LADDER.md, round 5, served posture (--seed-mode auto), the
+# h=256/L=6 column (dual_gnn_r5): clipped pre-solve gap medians over 36
+# instances a family at n = 512 from another seed.  Printed beside this
+# run's as a sanity check, not a limit.
+PUBLISHED_R5_CLIPPED_GAP_MEDIAN = {
+    "block": 2.08, "clustered": 1.99, "low_rank": 0.68, "metric": 0.00,
+    "noisy_linear": 5.88, "sparse": 6.09, "tie": 1.20, "uniform": 2.41,
+}
 
 
 def _emit(obj) -> None:
@@ -309,10 +344,17 @@ def _check_k3(torch, C, what, finite=False):
     Returns the kernel's result and the largest absolute difference over
     the finite entries."""
     from lapgnn_tpu_torch.ops.cuda import row_features_stats
+
+    got = row_features_stats(C)
+    return got, _hold_k3(torch, got, C, what, finite)
+
+
+def _hold_k3(torch, got, C, what, finite=False):
+    """``_check_k3`` on a result ``got`` the kernel gave for C; returns the
+    largest absolute difference over the finite entries."""
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain
     from lapgnn_tpu_torch.ops.cuda.features import row_features_stats_plain
 
-    got = row_features_stats(C)
     want = row_features_stats_plain(C, col_min_plain(C))
     torch.cuda.synchronize()
     if finite and not torch.isfinite(got).all():
@@ -325,7 +367,7 @@ def _check_k3(torch, C, what, finite=False):
             raise AssertionError(
                 f"row_features_stats channel {ch} is not bit-equal to its plain version ({what})")
     fin = torch.isfinite(want)
-    return got, float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
 
 
 def _special_rows(torch, C):
@@ -376,33 +418,52 @@ def _check_col_min(torch, C, u, what, forced=COLMIN_FORCED):
     that a zero minimum of a column holding both -0.0 and +0.0 need only
     compare equal.  Returns the largest absolute differences, and how many
     such zeros were compared and how many came out with the other sign."""
-    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_kernel, col_min_plain, min_trick_plain
+    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_kernel
 
     errs, mixed_zeros, other_sign = {}, 0, 0
     for name, uu in (("col_min", None), ("min_trick", u)):
-        X = C if uu is None else C - uu[..., :, None]
-        want = col_min_plain(C) if uu is None else min_trick_plain(C, uu)
-        zero, neg = X == 0, torch.signbit(X)
-        mixed = (zero & neg).any(-2) & (zero & ~neg).any(-2) & (want == 0)
-        del X, zero, neg
-        nan = torch.isnan(want)
-        exact = ~nan & ~mixed
-        fin = torch.isfinite(want)
+        want = _colmin_want(torch, C, uu)
         errs[name] = 0.0
         for force in forced:
             got = col_min_kernel(C, uu, **force)
             torch.cuda.synchronize()
-            if not torch.equal(torch.isnan(got), nan):
-                raise AssertionError(f"{name} NaN pattern differs ({what}, {force})")
-            if not torch.equal(got[exact].view(torch.int32), want[exact].view(torch.int32)):
-                raise AssertionError(f"{name} differs from its plain version ({what}, {force})")
-            if not bool((got[mixed] == 0).all()):
-                raise AssertionError(f"{name} mixed-zero minimum is not zero ({what}, {force})")
-            mixed_zeros += int(mixed.sum())
-            other_sign += int((torch.signbit(got[mixed]) != torch.signbit(want[mixed])).sum())
-            if fin.any():
-                errs[name] = max(errs[name], float((got[fin] - want[fin]).abs().max()))
+            e, mixed, other = _hold_colmin(torch, name, got, want, f"{what}, {force}")
+            errs[name] = max(errs[name], e)
+            mixed_zeros += mixed
+            other_sign += other
     return errs, mixed_zeros, other_sign
+
+
+def _colmin_want(torch, C, u):
+    """K1's (``u`` None) or K2's plain result on (C, u), with the columns
+    whose zero minimum comes from both -0.0 and +0.0 (there the sign is
+    free): (want, mixed)."""
+    from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
+
+    X = C if u is None else C - u[..., :, None]
+    want = col_min_plain(C) if u is None else min_trick_plain(C, u)
+    zero, neg = X == 0, torch.signbit(X)
+    return want, (zero & neg).any(-2) & (zero & ~neg).any(-2) & (want == 0)
+
+
+def _hold_colmin(torch, name, got, want_mixed, what):
+    """K1 / K2's result ``got`` against ``_colmin_want``'s: the same NaN
+    pattern, bit-equal elsewhere but for mixed-zero minima, which need only
+    be zero.  Returns (largest absolute difference over the finite entries,
+    mixed zeros compared, mixed zeros with the other sign)."""
+    want, mixed = want_mixed
+    nan = torch.isnan(want)
+    exact = ~nan & ~mixed
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{name} NaN pattern differs ({what})")
+    if not torch.equal(got[exact].view(torch.int32), want[exact].view(torch.int32)):
+        raise AssertionError(f"{name} differs from its plain version ({what})")
+    if not bool((got[mixed] == 0).all()):
+        raise AssertionError(f"{name} mixed-zero minimum is not zero ({what})")
+    other = int((torch.signbit(got[mixed]) != torch.signbit(want[mixed])).sum())
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    return err, int(mixed.sum()), other
 
 
 def _colmin_special_inputs(torch, C, u):
@@ -1124,21 +1185,43 @@ def _labelled(job):
     return instance_record(generate_synthetic_instance(fam, n, np.random.default_rng(seed)))
 
 
-def _train_data_async(seed):
-    """Start labelling the train phase's instances, ``TRAIN_SIZES`` of them,
-    the families taken in turn from ``FAMILIES``, by SciPy in a pool of
-    spawned processes (largest first).  Returns ``collect()``, which waits
-    for them, shuts the pool down and returns ({n: (train, val)}, seconds
-    from the start, workers)."""
+def _train_jobs(seed):
+    """The train phase's instances, ``TRAIN_SIZES`` of them, the families
+    taken in turn from ``FAMILIES``: (family, n, seed) jobs."""
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+
+    fams = list(FAMILIES)
+    return [(fams[i % len(fams)], n, seed * 1_000_003 + n * 101 + i)
+            for n, train, val in TRAIN_SIZES for i in range(train + val)]
+
+
+def _eval_jobs(seed):
+    """The eval phase's instances: ``EVAL_PER_FAMILY`` of each family at
+    ``EVAL_N``, grouped by family."""
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+
+    return [(fam, EVAL_N, seed * 1_000_003 + 7_919 + EVAL_PER_FAMILY * k + i)
+            for k, fam in enumerate(FAMILIES) for i in range(EVAL_PER_FAMILY)]
+
+
+def _train_split(records):
+    """The train phase's records in ``_train_jobs`` order -> {n: (train, val)}."""
+    data, k = {}, 0
+    for n, train, val in TRAIN_SIZES:
+        data[n] = (records[k : k + train], records[k + train : k + train + val])
+        k += train + val
+    return data
+
+
+def _label_async(jobs):
+    """Start labelling (family, n, seed) jobs by SciPy in a pool of spawned
+    processes (largest first).  Returns ``collect()``, which waits for them,
+    shuts the pool down and returns (records in job order, seconds from the
+    start, workers)."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
 
-    from lapgnn_tpu_torch.data.generators import FAMILIES
-
-    fams = list(FAMILIES)
-    jobs = [(fams[i % len(fams)], n, seed * 1_000_003 + n * 101 + i)
-            for n, train, val in TRAIN_SIZES for i in range(train + val)]
     workers = max(1, min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
     pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
@@ -1150,11 +1233,7 @@ def _train_data_async(seed):
             records = [futures[k].result() for k in range(len(jobs))]
         finally:
             pool.shutdown(cancel_futures=True)
-        data, k = {}, 0
-        for n, train, val in TRAIN_SIZES:
-            data[n] = (records[k : k + train], records[k + train : k + train + val])
-            k += train + val
-        return data, time.perf_counter() - t0, workers
+        return records, time.perf_counter() - t0, workers
 
     return collect
 
@@ -1215,12 +1294,13 @@ def _wrapped(owner, name, make):
             delattr(owner, name)
 
 
-def _capture(calls):
-    """For ``_wrapped``: keep each call's arguments and result in ``calls``."""
+def _capture(calls, clone=False):
+    """For ``_wrapped``: keep each call's arguments and result in ``calls``
+    (a copy of the result with ``clone``, safe from later in-place use)."""
     def make(real):
         def run(*args, **kwargs):
             out = real(*args, **kwargs)
-            calls.append((args, out))
+            calls.append((args, out.clone() if clone else out))
             return out
 
         return run
@@ -1264,8 +1344,8 @@ def phase_train(torch, seed, train_data=None):
     refinement, normalised costs and gap), warm-started from its weights,
     one epoch over labelled synthetic instances at n = 512 / 1024 / 2048;
     then the trained checkpoint served to a certified optimum, one step on
-    the card against the CPU, and the step's times.  ``train_data`` is what
-    ``_train_data_async(seed)()`` returns, labelled while an earlier phase
+    the card against the CPU, and the step's times.  ``train_data`` is
+    ({n: (train, val)}, seconds, workers), labelled while an earlier phase
     ran; without it the phase labels its own."""
     import copy
     import math
@@ -1282,7 +1362,10 @@ def phase_train(torch, seed, train_data=None):
 
     t_phase = time.perf_counter()
     overlapped = train_data is not None
-    data, data_s, workers = train_data if overlapped else _train_data_async(seed)()
+    if not overlapped:
+        records, data_s, workers = _label_async(_train_jobs(seed))()
+        train_data = (_train_split(records), data_s, workers)
+    data, data_s, workers = train_data
     init, meta, _ = load_checkpoint(CHECKPOINT)
     config = copy.deepcopy(meta["config"])
     config["training"]["epochs"] = 1
@@ -1458,6 +1541,257 @@ def phase_train(torch, seed, train_data=None):
     last = f"{TRAIN_TIMED[-1][0]}x{TRAIN_TIMED[-1][1]}"
     return {"launches": launches["greedy_total"], **greedy[last], "max_abs_err": greedy_err,
             **{f"at_{k}": v for k, v in greedy.items() if k != last}}
+
+
+def _event_ms(torch, fn, reps):
+    """Median CUDA-event ms of ``fn`` over ``reps`` runs after one warm-up
+    (for work of a millisecond and more: no L2 flush, no queueing)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _dual_forward_bound_ms(n, hidden, layers, n_params):
+    """Least time of one DualGNN forward at batch 1: its matrix-product
+    FLOPs over the float32 rate against its bytes (edge features, node
+    features and weights read once, u and v_hint written once) over the HBM
+    rate.  FLOPs a layer: the edge MLP 2·n²·(10·128 + 128·128 + 128·hidden),
+    the two edge terms and the two attention messages 8·n²·hidden, the four
+    node projections and the two updates 16·n·hidden²; the encoders
+    4·n·14·hidden.  Elementwise work (GELU, softmax, LayerNorm) is not
+    counted."""
+    flops = layers * (2 * n * n * (10 * 128 + 128 * 128 + 128 * hidden)
+                      + 8 * n * n * hidden + 16 * n * hidden * hidden) + 4 * n * 14 * hidden
+    nbytes = 4 * (n * n * 10 + 2 * n * 14 + n_params + 2 * n)
+    t_ops = flops / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def phase_eval(torch, seed, records=None):
+    """The evaluation path on the card: the accuracy ladder
+    (``cli.accuracy_ladder.ladder``, which runs ``evaluation.evaluate_pipeline``
+    a family and model) of OneGNN (``artifacts/one_gnn_default``,
+    ``WarmStartPipeline(mode="hybrid", seed_mode="auto")``) against DualGNN
+    (``artifacts/dual_gnn_r5`` at its full width, ``DualGNNPredictor``,
+    seed mode 'auto') on ``EVAL_PER_FAMILY`` labelled instances of each
+    family at n = ``EVAL_N``, each kernel's every call there held against
+    its plain version on the same arguments; the timing branch on 2 uniform
+    instances; the card against the CPU on one instance; then
+    ``graph_features`` and the forward timed at ``EVAL_TIMED_N`` beside the
+    forward's bound.  ``records`` are the labelled instances in
+    ``_eval_jobs`` order, made while an earlier phase ran; without them the
+    phase labels its own.  Returns the ladder's launch counts and each
+    kernel's largest difference from its plain version there."""
+    import math
+
+    import numpy as np
+
+    import lapgnn_tpu_torch.ops.cuda.features as cuda_features
+    import lapgnn_tpu_torch.ops.dual as dual_mod
+    import lapgnn_tpu_torch.ops.features as features_mod
+    import lapgnn_tpu_torch.train.loss as loss_mod
+    from lapgnn_tpu_torch.cli.accuracy_ladder import group_by_family, ladder
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+    from lapgnn_tpu_torch.evaluation import DualGNNPredictor, evaluate_pipeline
+    from lapgnn_tpu_torch.ops.cuda.greedy import greedy_total_plain
+    from lapgnn_tpu_torch.ops.dual import min_trick_v
+    from lapgnn_tpu_torch.ops.features import graph_features
+    from lapgnn_tpu_torch.ops.sinkhorn import auto_select_seed
+    from lapgnn_tpu_torch.pipeline import WarmStartPipeline
+    from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint, params_from_flax
+
+    label_s = None
+    if records is None:
+        records, label_s, _ = _label_async(_eval_jobs(seed))()
+    t_phase = time.perf_counter()
+    dparams, dmeta, _ = load_checkpoint(DUAL_CHECKPOINT)
+    oparams, ometa, _ = load_checkpoint(CHECKPOINT)
+    models = {
+        "one_gnn": WarmStartPipeline(
+            build_model_from_meta(ometa), oparams, mode="hybrid",
+            use_cost_refinement=bool(ometa.get("use_cost_refinement", True)), seed_mode="auto"),
+        "dual_gnn": DualGNNPredictor(build_model_from_meta(dmeta), dparams, seed_mode="auto"),
+    }
+    dual_model = models["dual_gnn"].model
+    by_family = group_by_family(records, EVAL_PER_FAMILY)
+    n_inst = sum(len(v) for v in by_family.values())
+    n_sentinel = sum(1 for r in records if (np.asarray(r["cost"]) >= 0.5e6).any())
+    warm = records[0]["cost"].astype(np.float32)[None]
+    for pipe in models.values():  # first use: cuBLAS, the kernels' libraries
+        pipe.predict_duals(warm)
+    torch.cuda.synchronize()
+
+    # the ladder, counted: every (model, family) through evaluate_pipeline,
+    # each kernel's arguments and result kept where the path calls it
+    seen = {k: [] for k in ("col_min", "min_trick", "row_features_stats", "greedy_total")}
+    _zero_launches()
+    result, ms_per_instance = {}, {}
+    with _wrapped(cuda_features, "col_min", _capture(seen["col_min"], clone=True)), \
+            _wrapped(dual_mod, "min_trick", _capture(seen["min_trick"], clone=True)), \
+            _wrapped(features_mod, "row_features_stats",
+                     _capture(seen["row_features_stats"], clone=True)), \
+            _wrapped(loss_mod, "greedy_total", _capture(seen["greedy_total"], clone=True)):
+        for name, pipe in models.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result.update(ladder({name: pipe}, by_family))
+            torch.cuda.synchronize()
+            ms_per_instance[name] = (time.perf_counter() - t0) * 1e3 / n_inst
+    launches = _read_launches()
+    want = {"row_features_stats": n_inst, "col_min": n_inst, "min_trick": 2 * n_inst,
+            "greedy_total": 2 * (n_inst + n_sentinel)}
+    if any(launches[k] < v for k, v in want.items()):
+        raise AssertionError(f"the evaluation path skipped a kernel: launches {launches}, "
+                             f"at least {want}")
+
+    # every kernel call of the ladder against its plain version on the same
+    # arguments: K1 and K2 bit for bit, K3 within K3_RTOL / K3_ATOL with its
+    # selection channels bit-equal, the greedy bound bit for bit
+    errs = {k: 0.0 for k in seen}
+    for k, calls in seen.items():
+        for i, (args, got) in enumerate(calls):
+            what = f"eval ladder, call {i} of {len(calls)}, shape {tuple(args[0].shape)}"
+            if k in ("col_min", "min_trick"):
+                e, _, _ = _hold_colmin(torch, k, got,
+                                       _colmin_want(torch, args[0], args[1] if k == "min_trick" else None),
+                                       what)
+            elif k == "row_features_stats":
+                e = _hold_k3(torch, got, args[0], what, finite=bool(torch.isfinite(args[0]).all()))
+            else:
+                plain = greedy_total_plain(*args)
+                if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
+                    raise AssertionError(f"greedy kernel differs from its plain loop ({what})")
+                e = _max_abs_err(torch, got, plain)
+            errs[k] = max(errs[k], e)
+    against_plain = {k: {"calls": len(calls), "shapes": sorted({tuple(a[0].shape) for a, _ in calls}),
+                         "max_abs_err": errs[k]} for k, calls in seen.items()}
+    if any(len(calls) < want[k] for k, calls in seen.items()):
+        raise AssertionError(f"the ladder's kernel calls were not all seen: {against_plain}")
+    del seen
+
+    for name, r in result.items():
+        for fam, m in r["per_family"].items():
+            vals = [x for v in m.values() for x in (v if isinstance(v, list) else [v])]
+            if not all(math.isfinite(float(x)) for x in vals):
+                raise AssertionError(f"{name} {fam}: a metric is not finite: {m}")
+            if m["feasible_rate"] != 1.0 or m["assist_rate"] != 1.0:
+                raise AssertionError(f"{name} {fam}: feasible {m['feasible_rate']}, "
+                                     f"assisted {m['assist_rate']}")
+            row = {k: m[k] for k in ("num_instances", "u_mae_gauge", "presolve_gap_clipped_median",
+                                     "presolve_gap_clipped_iqr", "feasible_rate", "assist_rate",
+                                     "fallback_rate", "rank1_seed_win_rate")}
+            if name == "dual_gnn":
+                row["published_r5_clipped_gap_median"] = PUBLISHED_R5_CLIPPED_GAP_MEDIAN.get(fam)
+            _emit({"phase": "eval_ladder", "model": name, "family": fam, "n": EVAL_N, **row})
+
+    # the timing branch: host clocks of the native cold and seeded solves
+    timed = evaluate_pipeline(models["one_gnn"], by_family["uniform"][:2],
+                              time_solvers=True, repeats=3)
+    speedup = {k: timed[k] for k in ("seeded_vs_cold_speedup_mean", "seeded_vs_cold_speedup_median")}
+    if not all(math.isfinite(v) and v > 0 for v in speedup.values()):
+        raise AssertionError(f"timing branch: {speedup}")
+
+    # the card against the CPU on one instance: features, then the forward
+    C = torch.from_numpy(by_family["uniform"][0]["cost"].astype(np.float32))[None]
+    cpu_model = build_model_from_meta(dmeta)
+    cpu_model.load_state_dict(params_from_flax(dparams))
+    cpu_model.eval()
+    with torch.inference_mode():
+        g_card = graph_features(C.cuda())
+        g_cpu = graph_features(C)
+        out_card = dual_model(g_card.edge_feat, g_card.row_feat, g_card.col_feat)
+        out_cpu = cpu_model(g_cpu.edge_feat, g_cpu.row_feat, g_cpu.col_feat)
+    edge_card = g_card.edge_feat.cpu()
+    exact = {ch: torch.equal(edge_card[..., ch], g_cpu.edge_feat[..., ch]) for ch in range(1, 7)}
+    if not all(exact.values()):
+        raise AssertionError(f"graph_features: rank / gap / tie channels differ: {exact}")
+    feat_err = {name: float((a.cpu() - b).abs().max()) for name, a, b in
+                zip(("row_feat", "col_feat", "edge_feat"), g_card, g_cpu)}
+    card_vs_cpu = {"rank_gap_tie_bit_equal": True, "feature_max_abs_err": feat_err}
+    for k in ("u", "v_hint"):
+        ref = out_cpu[k]
+        err = float((out_card[k].cpu() - ref).abs().max())
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        if not err <= tol:
+            raise AssertionError(f"dual_gnn_r5 {k}: card and CPU {err} apart (tolerance {tol})")
+        card_vs_cpu[f"{k}_max_abs_err"] = err
+        card_vs_cpu[f"{k}_tolerance"] = tol
+    del cpu_model, g_cpu, out_cpu
+
+    # times and memory at batch 1
+    n_params = sum(p.numel() for p in dual_model.parameters())
+    rng = np.random.default_rng(seed + 77)
+    times = {}
+    for n in EVAL_TIMED_N:
+        Cn = torch.from_numpy(FAMILIES["uniform"](n, rng).astype(np.float32)).cuda()[None]
+        with torch.inference_mode():
+            feats_ms = _event_ms(torch, lambda: graph_features(Cn), reps=5)
+            gf = graph_features(Cn)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            fwd_ms = _event_ms(torch, lambda: dual_model(gf.edge_feat, gf.row_feat, gf.col_feat),
+                               reps=3)
+            peak = torch.cuda.max_memory_allocated()
+        bound, by, flops = _dual_forward_bound_ms(n, dual_model.hidden_dim, dual_model.num_layers,
+                                                  n_params)
+        times[n] = {"graph_features_ms": feats_ms, "forward_ms": fwd_ms, "forward_bound_ms": bound,
+                    "forward_bound_by": by, "forward_flops": flops,
+                    "forward_tflops_per_s": flops / fwd_ms / 1e9,
+                    "forward_max_memory_allocated_bytes": peak,
+                    "memory_allocated_before_forward_bytes": before}
+        del Cn, gf
+        torch.cuda.empty_cache()
+    # where an evaluated instance's time goes, a family at a time: one
+    # instance through evaluate_pipeline and through predict_duals alone
+    per_family_ms = {name: {} for name in models}
+    for fam, insts in sorted(by_family.items()):
+        Cf = torch.from_numpy(insts[0]["cost"].astype(np.float32)).cuda()[None]
+        for name, pipe in models.items():
+            eval_ms = _ms_host(torch, lambda p=pipe: evaluate_pipeline(p, insts[:1], time_solvers=False), 3)
+            pred_ms = _ms_host(torch, lambda p=pipe: p.predict_duals(Cf), 3)
+            per_family_ms[name][fam] = {"evaluate_one_ms": eval_ms, "predict_ms": pred_ms}
+        del Cf
+
+    # one predict of each model at EVAL_N (host clock) and the DualGNN
+    # predict's seed policy alone (events), beside the stage times above
+    Cp = torch.from_numpy(by_family["uniform"][0]["cost"].astype(np.float32)).cuda()[None]
+    predict_ms = {name: _ms_host(torch, lambda p=pipe: p.predict_duals(Cp), 5)
+                  for name, pipe in models.items()}
+    with torch.inference_mode():
+        gf = graph_features(Cp)
+        u = dual_model(gf.edge_feat, gf.row_feat, gf.col_feat)["u"]
+        policy_ms = _event_ms(torch, lambda: auto_select_seed(Cp, u, min_trick=min_trick_v), 5)
+    del Cp, gf, u
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    report = {
+        "phase": "eval", "n": EVAL_N, "instances": n_inst, "sentinel_instances": n_sentinel,
+        "dual_gnn_width": {"hidden": dual_model.hidden_dim, "layers": dual_model.num_layers,
+                           "heads": dual_model.heads, "parameters": n_params},
+        "launches": launches, "launches_phase": _read_launches(),
+        "kernels_against_plain_on_the_ladder": against_plain,
+        "overall": {name: r["overall"] for name, r in result.items()},
+        "ms_per_instance_host_clock": ms_per_instance,
+        "timing_branch": {"model": "one_gnn", "instances": 2, "repeats": 3,
+                          "host_clock": True, **speedup},
+        "card_vs_cpu": card_vs_cpu, "times": times,
+        "predict_ms_host_clock": predict_ms, "dual_gnn_seed_policy_auto_ms": policy_ms,
+        "per_family_ms_host_clock": per_family_ms,
+        "labelling_seconds": label_s, "phase_seconds": phase_s,
+    }
+    _emit(report)
+    if phase_s > EVAL_PHASE_LIMIT_S:
+        raise AssertionError(f"the eval phase took {phase_s:.1f} s, above {EVAL_PHASE_LIMIT_S} s")
+    return {"launches": launches, "max_abs_err": errs}
 
 
 def _time_ms(torch, fn, reps, flush, queued=True, flush_by_read=False):
@@ -1776,7 +2110,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="comma-separated subset of build,compare,times,stream,train (no ok line)")
+                    help="comma-separated subset of build,compare,times,stream,train,eval "
+                         "(no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -1802,20 +2137,24 @@ def main() -> int:
                       "compare": lambda: phase_compare(torch, args.seed),
                       "times": lambda: phase_times(torch, args.seed),
                       "stream": lambda: phase_stream(torch, args.seed),
-                      "train": lambda: phase_train(torch, args.seed)}
+                      "train": lambda: phase_train(torch, args.seed),
+                      "eval": lambda: phase_eval(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
             return 0
         phase_build(torch)
-        # label the train phase's instances on the host's cores while the
-        # compare phase keeps the card busy; the pool is gone before any
-        # host-clock time is taken
-        collect = _train_data_async(args.seed)
+        # label the train and eval phases' instances on the host's cores
+        # while the compare phase keeps the card busy; the pool is gone
+        # before any host-clock time is taken
+        train_jobs = _train_jobs(args.seed)
+        collect = _label_async(train_jobs + _eval_jobs(args.seed))
         try:
             errs = phase_compare(torch, args.seed)
         finally:
-            train_data = collect()
+            records, label_s, workers = collect()
+        train_data = (_train_split(records[: len(train_jobs)]), label_s, workers)
+        eval_records = records[len(train_jobs):]
         pipe, c_uniform = phase_e2e(torch, args.seed)
         phase_breakdown(torch, pipe, c_uniform)
         launches, dpipe, costs = phase_device_e2e(torch, args.seed)
@@ -1823,6 +2162,7 @@ def main() -> int:
         phase_device_breakdown(torch, dpipe, costs["uniform"])
         phase_stream(torch, args.seed)
         train = phase_train(torch, args.seed, train_data)
+        evaluated = phase_eval(torch, args.seed, eval_records)
         times = phase_times(torch, args.seed)
     except Exception:
         traceback.print_exc()
@@ -1834,16 +2174,19 @@ def main() -> int:
         if kname == "greedy_total":
             # the training path's kernel: launches from the train phase, times
             # at its (16, 2048) batch, then (32, 512) and (32, 1024); the error
-            # over the compare phase and the train phase's real arguments
+            # over the compare phase and the train and eval phases' real
+            # arguments
             kernels.append({"name": kname, **info, **train,
-                            "max_abs_err": max(errs[kname], train["max_abs_err"]),
-                            "card": card})
+                            "max_abs_err": max(errs[kname], train["max_abs_err"],
+                                               evaluated["max_abs_err"][kname]),
+                            "launches_eval": evaluated["launches"][kname], "card": card})
             continue
         t = times[kname]
         kernels.append({
             "name": kname, **info,
             "launches": launches[kname],
-            "max_abs_err": errs[kname],
+            "launches_eval": evaluated["launches"][kname],
+            "max_abs_err": max(errs[kname], evaluated["max_abs_err"].get(kname, 0.0)),
             "n": N_E2E,
             **t[N_E2E],
             "at_n_8192": t[8192],

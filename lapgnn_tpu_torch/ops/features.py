@@ -1,16 +1,21 @@
-"""21-D OneGNN row features, batched in PyTorch.
+"""Feature engineering for OneGNN and DualGNN, batched in PyTorch.
 
-Port of the row path of ``lapgnn_tpu/ops/features.py``: ``row_features``
-(the sort-based form, an independent reference for kernel K3) and the router
-``fast_row_features``, which the predict path calls.  Channels, in order: row
-min, max, mean, std (population), MAD, entropy, second-best gap,
-competition, k=10-smallest mean/std, difficulty, near-best density,
-is-col-best fraction, then 8-D positional encodings.
+Port of ``lapgnn_tpu/ops/features.py``.  The 21-D OneGNN row features:
+``row_features`` (the sort-based form, an independent reference for kernel
+K3) and the router ``fast_row_features``, which the predict path calls.
+Channels, in order: row min, max, mean, std (population), MAD, entropy,
+second-best gap, competition, k=10-smallest mean/std, difficulty, near-best
+density, is-col-best fraction, then 8-D positional encodings.
+
+DualGNN's dense bipartite features, ``graph_features``: 14-D node features
+for rows and columns and a 10-channel (n, n) edge tensor.  They are
+sort-based, as in the JAX package, which has no Pallas kernel for them.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -19,16 +24,24 @@ from .cuda.features import row_features_max_m, row_features_stats
 
 __all__ = [
     "POS_FREQS",
+    "TAU",
     "EPS",
     "ROW_FEATURE_DIM",
+    "NODE_FEATURE_DIM",
+    "EDGE_FEATURE_DIM",
     "positional_encodings",
     "row_features",
     "fast_row_features",
+    "graph_features",
+    "GraphFeatures",
 ]
 
 POS_FREQS = (1, 2, 4, 8)
+TAU = 1e-3
 EPS = 1e-9
 ROW_FEATURE_DIM = 13 + 2 * len(POS_FREQS)  # 21
+NODE_FEATURE_DIM = 6 + 2 * len(POS_FREQS)  # 14
+EDGE_FEATURE_DIM = 10
 
 
 def positional_encodings(n: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -170,3 +183,123 @@ def fast_row_features(C: torch.Tensor) -> torch.Tensor:
     pos = positional_encodings(n, device=C.device).expand(B, n, 2 * len(POS_FREQS))
     feat = torch.cat([stats, pos], dim=-1)
     return feat[0] if squeeze else feat
+
+
+class GraphFeatures(NamedTuple):
+    row_feat: torch.Tensor   # (..., n, 14)
+    col_feat: torch.Tensor   # (..., n, 14)
+    edge_feat: torch.Tensor  # (..., n, n, 10)
+
+
+def _normalized_ranks(C: torch.Tensor, dim: int) -> torch.Tensor:
+    """Rank of each entry along ``dim``, normalised to [0, 1].  The order is
+    a stable argsort, as ``jnp.argsort``'s, so equal entries (the sparse
+    family's many 1e6 sentinels) rank by position; the ranks are its inverse
+    permutation, written by a scatter (JAX takes a second argsort, which
+    gives the same permutation)."""
+    n = C.shape[dim]
+    if n <= 1:
+        return torch.zeros_like(C, dtype=torch.float32)
+    order = torch.argsort(C, dim=dim, stable=True)
+    shape = [1] * C.ndim
+    shape[dim] = n
+    pos = torch.arange(n, device=C.device).view(shape).expand_as(order)
+    ranks = torch.empty_like(order).scatter_(dim, order, pos)
+    return _exact_div(ranks.to(torch.float32), n - 1)
+
+
+def _exact_div(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x / d, rounded once.  With a Python number for d, PyTorch multiplies
+    by its reciprocal on CUDA (one ulp apart from the division for most d);
+    a tensor divisor keeps the division, as on the CPU and in JAX."""
+    return x / torch.tensor(float(d), dtype=x.dtype, device=x.device)
+
+
+def _axis_stats(C: torch.Tensor, dim: int):
+    """min, max, mean, population std, median, MAD (floored at EPS) and the
+    softmax entropy of C along ``dim``, from one sort."""
+    mn = C.amin(dim)
+    mx = C.amax(dim)
+    mean = C.mean(dim)
+    std = C.std(dim, correction=0)
+    sorted_vals = torch.sort(C.movedim(dim, -1), dim=-1).values
+    med = _median_from_sorted(sorted_vals)
+    mad = torch.clamp_min(_mad_from_sorted(sorted_vals, med), EPS)
+    ent = _entropy(C, dim=dim)
+    return mn, mx, mean, std, med, mad, ent
+
+
+def graph_features(
+    C: torch.Tensor,
+    include_reduced_cost: bool = False,
+    u: Optional[torch.Tensor] = None,
+    constrain_rows: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    constrain_cols: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> GraphFeatures:
+    """Dense bipartite graph features for DualGNN: (n, n) or (B, n, n).
+
+    Node features (14-D, rows and columns alike): min, max, mean, std, MAD,
+    entropy, then the 8-D positional encodings.  Edge channels (10): scaled
+    cost (C - row median) / row MAD, row rank, column rank, row gap, column
+    gap, row / column tie fractions (gap <= TAU), row / column entropies
+    (broadcast), and the reduced cost against ``u`` and its min-trick v when
+    ``include_reduced_cost`` and ``u`` are given (zeros otherwise).
+
+    ``constrain_rows`` / ``constrain_cols`` are the JAX function's sharding
+    hooks, the identity on one device; when given, the row (column)
+    statistics read ``constrain_rows(C)`` (``constrain_cols(C)``).  Memory:
+    the edge tensor is B·n²·10 float32, 160 MiB at n = 2048."""
+    squeeze = C.ndim == 2
+    if squeeze:
+        C = C[None]
+    B, n, _ = C.shape
+    Cf = C.to(torch.float32)
+    Cr = constrain_rows(Cf) if constrain_rows is not None else Cf
+    Cc = constrain_cols(Cf) if constrain_cols is not None else Cf
+
+    r_mn, r_mx, r_mean, r_std, r_med, r_mad, r_ent = _axis_stats(Cr, dim=-1)
+    c_mn, c_mx, c_mean, c_std, c_med, c_mad, c_ent = _axis_stats(Cc, dim=-2)
+
+    scaled_cost = (Cf - r_med[..., :, None]) / r_mad[..., :, None]
+    row_rank = _normalized_ranks(Cr, dim=-1)
+    col_rank = _normalized_ranks(Cc, dim=-2)
+    row_gap = Cf - r_mn[..., :, None]
+    col_gap = Cf - c_mn[..., None, :]
+    row_tie = _exact_div((row_gap <= TAU).to(torch.float32).sum(-1), max(1, n))
+    col_tie = _exact_div((col_gap <= TAU).to(torch.float32).sum(-2), max(1, n))
+
+    if include_reduced_cost and u is not None:
+        uf = u.to(torch.float32)
+        if uf.ndim == 1:
+            uf = uf[None]
+        v = (Cf - uf[..., :, None]).amin(-2)
+        reduced = Cf - uf[..., :, None] - v[..., None, :]
+    else:
+        reduced = torch.zeros_like(Cf)
+
+    edge_feat = torch.stack(
+        [
+            scaled_cost,
+            row_rank,
+            col_rank,
+            row_gap,
+            col_gap,
+            row_tie[..., :, None].expand(B, n, n),
+            col_tie[..., None, :].expand(B, n, n),
+            r_ent[..., :, None].expand(B, n, n),
+            c_ent[..., None, :].expand(B, n, n),
+            reduced,
+        ],
+        dim=-1,
+    )
+
+    pos = positional_encodings(n, device=C.device).expand(B, n, 2 * len(POS_FREQS))
+    row_feat = torch.cat(
+        [torch.stack([r_mn, r_mx, r_mean, r_std, r_mad, r_ent], dim=-1), pos], dim=-1
+    )
+    col_feat = torch.cat(
+        [torch.stack([c_mn, c_mx, c_mean, c_std, c_mad, c_ent], dim=-1), pos], dim=-1
+    )
+    if squeeze:
+        return GraphFeatures(row_feat[0], col_feat[0], edge_feat[0])
+    return GraphFeatures(row_feat, col_feat, edge_feat)

@@ -1,6 +1,7 @@
 """Analytic dual seeds for rank-1-dominant cost matrices.
 
-Port of ``lapgnn_tpu/ops/rank1.py`` (``rank1_fit``, ``rank1_duals``).  For
+Port of ``lapgnn_tpu/ops/rank1.py`` (``rank1_fit``, ``rank1_duals``,
+``select_best_seed``).  For
 ``M_ij = a_i * b_j`` with ``a`` sorted ascending and ``b`` descending the
 permuted matrix is Monge, the identity matching is optimal, and
 
@@ -12,11 +13,13 @@ are ``torch.argsort(..., stable=True)``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["rank1_fit", "rank1_duals"]
+from .dual import fast_min_trick
+
+__all__ = ["rank1_fit", "rank1_duals", "select_best_seed"]
 
 
 def _normalized(y: torch.Tensor) -> torch.Tensor:
@@ -58,3 +61,36 @@ def rank1_duals(C: torch.Tensor, iters: int = 6) -> Tuple[torch.Tensor, torch.Te
     u = torch.gather(u_s, -1, torch.argsort(pi, dim=-1, stable=True))
     v = torch.gather(v_s, -1, torch.argsort(qi, dim=-1, stable=True))
     return (u + delta[..., None]).to(C.dtype), v.to(C.dtype)
+
+
+def select_best_seed(
+    cost: torch.Tensor,
+    u_candidates: Sequence[torch.Tensor],
+    min_trick: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    collision_veto: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-instance argmax of the dual objective over candidate row duals,
+    each projected to a feasible pair by ``min_trick`` (default
+    ``ops.dual.fast_min_trick``, kernel K2 on a CUDA tensor).  With
+    ``collision_veto`` a candidate whose unique-argmin count trails the best
+    by more than n/4 is disqualified first (``ops.sinkhorn``).  Returns the
+    winning ``(u, v)``; (n, n) or (B, n, n)."""
+    if min_trick is None:
+        min_trick = fast_min_trick
+    if cost.ndim == 2:
+        u, v = select_best_seed(
+            cost[None], tuple(u[None] for u in u_candidates), min_trick, collision_veto
+        )
+        return u[0], v[0]
+
+    us = torch.stack(tuple(u_candidates), 0)  # (K, B, n)
+    vs = torch.stack([min_trick(cost, u) for u in u_candidates], 0)
+    obj = us.sum(-1) + vs.sum(-1)  # (K, B)
+    if collision_veto and len(u_candidates) > 1:
+        from .sinkhorn import collision_veto_mask, uniq_argmin_count
+
+        uniq = torch.stack([uniq_argmin_count(cost, u, v) for u, v in zip(us, vs)], 0)
+        obj = torch.where(collision_veto_mask(uniq, cost.shape[-1]), obj, -torch.inf)
+    best = obj.argmax(0)  # first maximum on ties, as jnp.argmax
+    ar = torch.arange(us.shape[1], device=us.device)
+    return us[best, ar], vs[best, ar]

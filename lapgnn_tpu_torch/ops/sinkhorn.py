@@ -10,7 +10,7 @@ unique-argmin collision veto.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -127,21 +127,27 @@ def _take(stacked: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def auto_select_seed(
-    cost: torch.Tensor, u_gnn: torch.Tensor
+    cost: torch.Tensor,
+    u_gnn: torch.Tensor,
+    min_trick: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The serving 'auto' seed policy: rank-1 candidate beside the model
     seed, Sinkhorn refinement of the objective winner, then a three-way
     selection by dual objective under the collision veto.
 
-    The two candidates' min-trick projections go through ``fast_min_trick``
-    (kernel K2 on a CUDA tensor)."""
+    The two candidates' min-trick projections go through ``min_trick``,
+    by default ``fast_min_trick`` (kernel K2 on a CUDA tensor); the DualGNN
+    evaluation passes the plain ``ops.dual.min_trick_v``, as the JAX
+    evaluation does."""
+    if min_trick is None:
+        min_trick = fast_min_trick
     if cost.ndim == 2:
-        u, v = auto_select_seed(cost[None], u_gnn[None])
+        u, v = auto_select_seed(cost[None], u_gnn[None], min_trick)
         return u[0], v[0]
 
     u_r1, _ = rank1_duals(cost)
     us = [u_gnn, u_r1]
-    vs = [fast_min_trick(cost, u) for u in us]
+    vs = [min_trick(cost, u) for u in us]
     objs = [u.sum(-1) + v.sum(-1) for u, v in zip(us, vs)]
     pick01 = torch.stack(objs, 0).argmax(0)  # first maximum on ties, as jnp
     u_sk, v_sk = sinkhorn_refine(cost, _take(torch.stack(us, 0), pick01))

@@ -171,6 +171,17 @@ def _decode_transfer(cost: Payload) -> torch.Tensor:
     return cost.to(torch.float32)
 
 
+def device_batch(cost, device: torch.device) -> torch.Tensor:
+    """A host array or a tensor, (n, m) or (B, n, m) -> a contiguous
+    (B, n, m) float32 batch on ``device`` (a tensor already there is cast
+    there)."""
+    if isinstance(cost, torch.Tensor):
+        t = cost.to(device, torch.float32)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(cost, np.float32)).to(device)
+    return (t if t.ndim == 3 else t[None]).contiguous()
+
+
 def _map_payload(fn: Callable[[torch.Tensor], torch.Tensor], payload: Payload) -> Payload:
     if isinstance(payload, dict):
         return {key: fn(t) for key, t in payload.items()}
@@ -292,18 +303,9 @@ class WarmStartPipeline:
             self.model, use_cost_refinement, normalize_costs, seed_mode
         )
 
-    def _to_device(self, cost) -> torch.Tensor:
-        """A host array or a tensor -> a (B, n, m) float32 batch on the
-        pipeline's device (tensors already there are cast there)."""
-        if isinstance(cost, torch.Tensor):
-            t = cost.to(self.device, torch.float32)
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(cost, np.float32)).to(self.device)
-        return (t if t.ndim == 3 else t[None]).contiguous()
-
     def predict_duals(self, cost) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, n, n) -> ((B, n) u, (B, n) v) on the device, dual-feasible."""
-        return self._predict(self._to_device(cost))
+        return self._predict(device_batch(cost, self.device))
 
     def _to_xfer(self, c) -> Payload:
         """Pack a host array into the transfer encoding, as CPU tensors; the

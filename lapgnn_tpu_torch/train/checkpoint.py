@@ -1,8 +1,8 @@
 """Checkpoints: ``meta.json`` + flax-serialised ``params.msgpack``.
 
 Port of ``lapgnn_tpu/train/checkpoint.py`` (``save_checkpoint`` :30,
-``load_checkpoint`` :44, ``merge_params`` :66 and the ``one_gnn`` branch of
-``build_model_from_meta`` :107).  The directory format is unchanged, so
+``load_checkpoint`` :44, ``merge_params`` :66 and ``build_model_from_meta``
+:107).  The directory format is unchanged, so
 checkpoints stay interchangeable: the JAX package loads what the port
 writes and the other way round.
 
@@ -337,7 +337,7 @@ def merge_params(fresh, loaded):
 
 
 def build_model_from_meta(meta: Dict[str, Any]):
-    """Rebuild a model from checkpoint metadata (``one_gnn`` only so far)."""
+    """Rebuild a model from checkpoint metadata (``one_gnn`` or ``dual_gnn``)."""
     arch = meta.get("architecture", "one_gnn")
     if arch == "one_gnn":
         from ..models import OneGNN
@@ -351,5 +351,12 @@ def build_model_from_meta(meta: Dict[str, Any]):
             context=bool(meta.get("context", False)),
         )
     if arch == "dual_gnn":
-        raise NotImplementedError("DualGNN is not ported yet (see ROADMAP.md)")
+        from ..models import DualGNN
+
+        return DualGNN(
+            hidden_dim=int(meta.get("hidden", 128)),
+            layers=int(meta.get("layers", 4)),
+            heads=int(meta.get("heads", 4)),
+            dropout=float(meta.get("dropout", 0.1)),
+        )
     raise ValueError(f"unknown architecture in checkpoint meta: {arch}")

@@ -1,4 +1,4 @@
-"""flax OneGNN parameters <-> the port's ``OneGNN`` state dict.
+"""flax OneGNN / DualGNN parameters <-> the port's state dicts.
 
 ``params_from_flax`` is the inverse of
 ``lapgnn_tpu/train/convert_torch.py:convert_one_gnn_state_dict`` (:48): a
@@ -7,7 +7,11 @@ flax ``Dense.kernel`` is (in, out), so ``Linear.weight = kernel.T``; a flax
 stays ``bias``.  ``params_to_flax`` maps back, keys sorted as JAX's tree utilities
 leave the trained tree the JAX trainer saves, so
 ``params_to_flax(params_from_flax(t)) == t`` and a checkpoint the port
-writes is one the JAX package reads.
+writes is one the JAX package reads.  A DualGNN tree (it has
+``row_encoder_fc``) maps onto ``models.DualGNN``: ``layer_{i}`` becomes
+``layer.{i}``, a bias-free Dense (the projections) has no bias, and the
+attention weights ``attn_row`` / ``attn_col`` (heads, 3, head_dim) and their
+biases are copied as they are.
 """
 
 from __future__ import annotations
@@ -30,12 +34,74 @@ def _ln(p: Dict[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
     out[f"{prefix}.bias"] = torch.from_numpy(np.array(p["bias"], np.float32))
 
 
+def _arr(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+# DualGNN: the Dense and LayerNorm submodules of a layer, and the bare
+# parameters, by their flax names (the port's attributes carry the same).
+_DUAL_LAYER_DENSE = ("row_proj", "col_proj", "row_val", "col_val", "edge_fc1",
+                     "edge_fc2", "edge_fc3", "row_update", "col_update")
+_DUAL_LAYER_NORM = ("row_norm", "col_norm")
+_DUAL_LAYER_PARAMS = ("attn_row", "attn_col", "attn_row_bias", "attn_col_bias")
+_DUAL_TOP_DENSE = ("row_encoder_fc", "col_encoder_fc", "row_out", "col_out")
+_DUAL_TOP_NORM = ("row_encoder_norm", "col_encoder_norm")
+
+
+def _dual_from_flax(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+
+    def lin(q, prefix):
+        sd[f"{prefix}.weight"] = torch.from_numpy(np.array(q["kernel"], np.float32).T.copy())
+        if "bias" in q:
+            sd[f"{prefix}.bias"] = _arr(q["bias"])
+
+    for name in _DUAL_TOP_DENSE:
+        lin(p[name], name)
+    for name in _DUAL_TOP_NORM:
+        _ln(p[name], name, sd)
+    layers = sum(1 for k in p if k.startswith("layer_"))
+    for i in range(layers):
+        q = p[f"layer_{i}"]
+        for name in _DUAL_LAYER_DENSE:
+            lin(q[name], f"layer.{i}.{name}")
+        for name in _DUAL_LAYER_NORM:
+            _ln(q[name], f"layer.{i}.{name}", sd)
+        for name in _DUAL_LAYER_PARAMS:
+            sd[f"layer.{i}.{name}"] = _arr(q[name])
+    return sd
+
+
+def _dual_to_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    def lin(prefix):
+        out = {"kernel": _np(sd[f"{prefix}.weight"]).T.copy()}
+        if f"{prefix}.bias" in sd:
+            out["bias"] = _np(sd[f"{prefix}.bias"])
+        return out
+
+    def ln(prefix):
+        return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+    p: Dict[str, Any] = {name: lin(name) for name in _DUAL_TOP_DENSE}
+    p.update({name: ln(name) for name in _DUAL_TOP_NORM})
+    layers = len({k.split(".")[1] for k in sd if k.startswith("layer.")})
+    for i in range(layers):
+        q: Dict[str, Any] = {name: lin(f"layer.{i}.{name}") for name in _DUAL_LAYER_DENSE}
+        q.update({name: ln(f"layer.{i}.{name}") for name in _DUAL_LAYER_NORM})
+        q.update({name: _np(sd[f"layer.{i}.{name}"]) for name in _DUAL_LAYER_PARAMS})
+        p[f"layer_{i}"] = q
+    return {"params": _sorted(p)}
+
+
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax OneGNN tree (``{"params": {...}}`` or the inner dict) of numpy
-    arrays -> ``OneGNN`` state dict of CPU float32 tensors.  A tree without
-    the top-k refinement's leaves (a model initialised without a cost) gives
-    a state dict without them, to load with ``strict=False``."""
+    """flax OneGNN or DualGNN tree (``{"params": {...}}`` or the inner dict)
+    of numpy arrays -> ``OneGNN`` / ``DualGNN`` state dict of CPU float32
+    tensors.  A OneGNN tree without the top-k refinement's leaves (a model
+    initialised without a cost) gives a state dict without them, to load
+    with ``strict=False``."""
     p = tree.get("params", tree)
+    if "row_encoder_fc" in p:
+        return _dual_from_flax(p)
     layers = sum(1 for k in p if k.startswith("block_"))
     sd: Dict[str, torch.Tensor] = {}
     _lin(p["input_proj"], "input_proj.0", sd)
@@ -60,11 +126,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def params_to_flax(state_dict: Dict[str, torch.Tensor], refine: bool = True) -> Dict[str, Any]:
-    """``OneGNN`` state dict -> the flax tree ``{"params": {...}}`` of
-    float32 numpy arrays, every level's keys sorted.  ``refine=False``
-    leaves out the top-k refinement's leaves, as flax's tree of a model
-    initialised without a cost has none."""
+    """``OneGNN`` or ``DualGNN`` state dict -> the flax tree
+    ``{"params": {...}}`` of float32 numpy arrays, every level's keys
+    sorted.  ``refine=False`` leaves out OneGNN's top-k refinement leaves,
+    as flax's tree of a model initialised without a cost has none."""
     sd = state_dict
+    if "row_encoder_fc.weight" in sd:
+        return _dual_to_flax(sd)
 
     def lin(prefix):
         return {"kernel": _np(sd[f"{prefix}.weight"]).T.copy(), "bias": _np(sd[f"{prefix}.bias"])}

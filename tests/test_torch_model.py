@@ -143,7 +143,9 @@ def test_unported_variants_raise():
         OneGNN(context=True)
     with pytest.raises(NotImplementedError):
         OneGNN(topk_impl="iter")
-    with pytest.raises(NotImplementedError):
-        build_model_from_meta({"architecture": "dual_gnn"})
+    # DualGNN is ported: its meta builds the model (tests/test_torch_dual_gnn.py)
+    from lapgnn_tpu_torch.models import DualGNN
+
+    assert isinstance(build_model_from_meta({"architecture": "dual_gnn"}), DualGNN)
     with pytest.raises(ValueError):
         build_model_from_meta({"architecture": "nope"})

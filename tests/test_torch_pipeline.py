@@ -294,6 +294,9 @@ def test_port_imports_no_jax():
         "import lapgnn_tpu_torch.solver.jv, lapgnn_tpu_torch.solver.seeded\n"
         "import lapgnn_tpu_torch.ops.cuda, lapgnn_tpu_torch.ops.cuda.twomin\n"
         "import lapgnn_tpu_torch.train, lapgnn_tpu_torch.data.generators\n"
+        "import lapgnn_tpu_torch.evaluation, lapgnn_tpu_torch.models.dual_gnn\n"
+        "import lapgnn_tpu_torch.ops.padding, lapgnn_tpu_torch.data.h5io\n"
+        "import lapgnn_tpu_torch.cli.eval, lapgnn_tpu_torch.cli.accuracy_ladder\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'msgpack'))"
         " or m == 'lapgnn_tpu' or m.startswith('lapgnn_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

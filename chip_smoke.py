@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream,train,eval]
+    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream,train,eval,dual_train]
 
 ``--phases`` runs a subset (for a first look at a changed kernel,
 ``build,stream`` after a change to the transfer layer, ``build,train`` after
-one to the training path, ``build,eval`` after one to the evaluation path)
-and then prints no ``ok`` line; with no arguments every phase runs.
+one to the training path, ``build,eval`` after one to the evaluation path,
+``build,dual_train`` after one to DualGNN training) and then prints no
+``ok`` line; with no arguments every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -101,7 +102,26 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      1e-4·max(1, max|u|)); ``graph_features`` and forward ms at n = 512 and
      2048 beside the forward's bound, and the peak memory of the forward.
      At most 60 s.
- 10. Times: each kernel and its plain version at n = 2048 and 8192 beside
+ 10. Dual train: ``train_dual_gnn`` at dual_gnn_r5's full width and
+     schedule (hidden 256, 6 layers, 4 heads, dropout 0.1, lr 1e-3, batch 4,
+     the clipped, normalised and supervised loss), warm-started from r5's
+     weights (every leaf restored), one epoch over the train phase's n = 512
+     records (8 steps, 2 validation batches): every loss finite, the
+     parameters moved, the validation gap median finite, the greedy kernel
+     launched 10 times and each call bit-equal to its plain loop on its own
+     arguments.  The trained tree saved with the CLI's meta, rebuilt from it
+     and served on one n = 512 instance through ``DualGNNPredictor`` and
+     ``evaluate_pipeline``: feasible and assisted.  One step at (B, n) =
+     (2, 64), dropout 0, from r5's weights on the card against the CPU: loss
+     within 1e-5 relative, each gradient within 1e-4 max|g| + 1e-7, greedy
+     bound bit-equal.  Then ms a step at (4, 512) and (2, 1024) (host clock),
+     its stages by CUDA events (graph features, forward, loss with the
+     greedy kernel, backward, optimizer), its peak memory, its bound
+     (3 x the forward's matrix FLOPs over the float32 rate), TFLOP/s and the
+     device's idle share over one step (torch.profiler); the greedy kernel
+     timed beside its plain loop on the first step's arguments.  At most
+     60 s.
+ 11. Times: each kernel and its plain version at n = 2048 and 8192 beside
      its bound (the larger of the bytes it must move over the HBM rate and
      the float32 operations over the card's float32 rate).  Median of
      CUDA-event timings, all reps queued behind a spin kernel so the host's
@@ -190,6 +210,15 @@ EVAL_N = 512
 EVAL_PER_FAMILY = 4
 EVAL_TIMED_N = (512, 2048)
 EVAL_PHASE_LIMIT_S = 60.0
+# The dual_train phase: dual_gnn_r5's own schedule (docs/ACCURACY_LADDER.md:
+# AdamW lr 1e-3, batch 4 at hidden 256, n = 512), one epoch over the train
+# phase's n = 512 records; one step card against CPU at (2, 64); step times
+# at (B, n) = (4, 512) and (2, 1024).
+DUAL_TRAIN_BATCH = 4
+DUAL_TRAIN_LR = 1e-3
+DUAL_VS_CPU = (2, 64)
+DUAL_TRAIN_TIMED = ((4, 512), (2, 1024))
+DUAL_TRAIN_PHASE_LIMIT_S = 60.0
 # docs/ACCURACY_LADDER.md, round 5, served posture (--seed-mode auto), the
 # h=256/L=6 column (dual_gnn_r5): clipped pre-solve gap medians over 36
 # instances a family at n = 512 from another seed.  Printed beside this
@@ -1308,12 +1337,15 @@ def _capture(calls, clone=False):
     return make
 
 
-def _stage_ms(torch, step, model, opt, cost, u, gen):
+def _stage_ms(torch, step, model, opt, cost, u, gen, owner=None, features="row_features",
+              loss="one_gnn_loss"):
     """One call of the real train step ``step`` cut at its stages by CUDA
-    events recorded around the functions it calls: normalisation and
-    features (up to ``row_features``' return), forward, loss (with the
-    greedy kernel), backward (up to the optimizer's step), optimizer."""
-    from lapgnn_tpu_torch.train import trainer
+    events recorded around the functions it calls, looked up in ``owner``
+    (the OneGNN trainer's module unless given): normalisation and features
+    (up to ``features``' return), forward, loss (``loss``, with the greedy
+    kernel), backward (up to the optimizer's step), optimizer."""
+    if owner is None:
+        from lapgnn_tpu_torch.train import trainer as owner
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
 
@@ -1330,12 +1362,62 @@ def _stage_ms(torch, step, model, opt, cost, u, gen):
 
         return make
 
-    with _wrapped(trainer, "row_features", marks(1)), _wrapped(model, "forward", marks(2)), \
-            _wrapped(trainer, "one_gnn_loss", marks(3)), _wrapped(opt, "step", marks(5, before=4)):
+    with _wrapped(owner, features, marks(1)), _wrapped(model, "forward", marks(2)), \
+            _wrapped(owner, loss, marks(3)), _wrapped(opt, "step", marks(5, before=4)):
         ev[0].record()
         step(cost, u, gen)
     torch.cuda.synchronize()
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+
+def _counting(record):
+    """For ``_wrapped`` around a step factory: every step it makes appends
+    (its batch's shape, its output) to ``record`` when called; the output
+    stays a device tensor, so counting adds no sync."""
+    def make(real):
+        def made(*a, **k):
+            step = real(*a, **k)
+
+            def counted(cost, *rest):
+                out = step(cost, *rest)
+                record.append((tuple(cost.shape), out))
+                return out
+
+            return counted
+
+        return made
+
+    return make
+
+
+def _greedy_against_plain(torch, args, got, what, flush, no_flush):
+    """The greedy kernel's result ``got`` on ``args`` (red, cost, order,
+    valid), as a training step handed them, held bit for bit to its plain
+    loop; then the kernel's time (L2 flushed), the loop's time and launches,
+    the bytes bound and the serial floor (one instance, L2 left warm)."""
+    from lapgnn_tpu_torch.ops.cuda import greedy_total
+    from lapgnn_tpu_torch.ops.cuda.greedy import greedy_total_plain
+
+    red, c_n, order, valid = args
+    B, n = red.shape[0], red.shape[1]
+    bound, by = _bound_ms("greedy_total", B, n, red.shape[2])
+    t0 = time.perf_counter()
+    want = greedy_total_plain(red, c_n, order, valid)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"greedy kernel differs from its plain loop in {what}")
+    rows, _ = _profile(torch, lambda: greedy_total_plain(red, c_n, order, valid))
+    return {
+        "batch": B, "n": n, "bit_equal": True, "max_abs_err": _max_abs_err(torch, got, want),
+        "ms": _time_ms(torch, lambda: greedy_total(red, c_n, order, valid), 5, flush),
+        "plain_ms": plain_ms,
+        "plain_launches": sum(r[2] for r in rows) if rows else "not measured",
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "serial_floor_ms": _time_ms(
+            torch, lambda: greedy_total(red[:1], c_n[:1], order[:1],
+                                        None if valid is None else valid[:1]), 5, no_flush),
+    }
 
 
 def phase_train(torch, seed, train_data=None):
@@ -1354,7 +1436,6 @@ def phase_train(torch, seed, train_data=None):
     import numpy as np
 
     from lapgnn_tpu_torch.ops.cuda import greedy_total
-    from lapgnn_tpu_torch.ops.cuda.greedy import greedy_total_plain
     from lapgnn_tpu_torch.pipeline import WarmStartPipeline
     from lapgnn_tpu_torch.train import loss as loss_mod
     from lapgnn_tpu_torch.train import progressive, trainer
@@ -1378,28 +1459,11 @@ def phase_train(torch, seed, train_data=None):
     # count the steps and keep each step's batch shape and loss (a device
     # tensor: no sync), not its batch, which would add to the peak memory
     steps, evals = [], []
-
-    def counting(record):
-        def make(real):
-            def made(*a, **k):
-                step = real(*a, **k)
-
-                def counted(cost, *rest):
-                    out = step(cost, *rest)
-                    record.append((tuple(cost.shape), out))
-                    return out
-
-                return counted
-
-            return made
-
-        return make
-
     logs = []
     with tempfile.TemporaryDirectory() as tmp:
         config["checkpointing"]["output_dir"] = tmp
-        with _wrapped(progressive, "make_train_step", counting(steps)), \
-                _wrapped(progressive, "make_eval_step", counting(evals)):
+        with _wrapped(progressive, "make_train_step", _counting(steps)), \
+                _wrapped(progressive, "make_eval_step", _counting(evals)):
             _zero_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1499,28 +1563,10 @@ def phase_train(torch, seed, train_data=None):
         calls = []
         with _wrapped(loss_mod, "greedy_total", _capture(calls)):
             step(cost, u, gen)
-        (red, c_n, order, valid), got = calls[0]
-        bound, by = _bound_ms("greedy_total", B, n, n)
-        t0 = time.perf_counter()
-        want = greedy_total_plain(red, c_n, order, valid)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"greedy kernel differs from its plain loop in the step at {key}")
-        err = _max_abs_err(torch, got, want)
-        greedy_err = max(greedy_err, err)
-        rows, _ = _profile(torch, lambda: greedy_total_plain(red, c_n, order, valid))
-        greedy[key] = {
-            "batch": B, "n": n, "bit_equal": True, "max_abs_err": err,
-            "ms": _time_ms(torch, lambda: greedy_total(red, c_n, order, valid), 5, flush),
-            "plain_ms": plain_ms,
-            "plain_launches": sum(r[2] for r in rows) if rows else "not measured",
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "serial_floor_ms": _time_ms(
-                torch, lambda: greedy_total(red[:1], c_n[:1], order[:1],
-                                            None if valid is None else valid[:1]), 5, no_flush),
-        }
-        del cost, u, red, c_n, order, valid, got, want, calls
+        greedy[key] = _greedy_against_plain(torch, *calls[0], f"the step at {key}", flush,
+                                            no_flush)
+        greedy_err = max(greedy_err, greedy[key]["max_abs_err"])
+        del cost, u, calls
         torch.cuda.empty_cache()
 
     report = {
@@ -1792,6 +1838,212 @@ def phase_eval(torch, seed, records=None):
     if phase_s > EVAL_PHASE_LIMIT_S:
         raise AssertionError(f"the eval phase took {phase_s:.1f} s, above {EVAL_PHASE_LIMIT_S} s")
     return {"launches": launches, "max_abs_err": errs}
+
+
+def phase_dual_train(torch, seed, train_data=None):
+    """The DualGNN training path on the card: ``train_dual_gnn`` at
+    dual_gnn_r5's full width and schedule (hidden 256, 6 layers, 4 heads,
+    dropout 0.1, lr 1e-3, batch 4, the sentinel-clipped, normalised and
+    supervised loss), warm-started from r5's weights, one epoch over the
+    train phase's n = 512 records (32 train: 8 steps; 8 val: 2 batches),
+    every greedy call held bit for bit to its plain loop; the trained
+    checkpoint saved with the CLI's meta, rebuilt from it and served on one
+    n = 512 instance; one step on the card against the CPU at (2, 64); the
+    step's time, stages, peak memory and idle share at (4, 512) and
+    (2, 1024).  ``train_data`` is the train phase's ({n: (train, val)}, ...),
+    labelled while an earlier phase ran; without it the phase labels its
+    own.  Returns the launch counts of the training run and the greedy
+    kernel's largest difference from its plain loop there."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    import lapgnn_tpu_torch.train.loss as loss_mod
+    from lapgnn_tpu_torch.cli import train_dual_gnn as cli
+    from lapgnn_tpu_torch.data.synthetic import generate_synthetic_instance, instance_record
+    from lapgnn_tpu_torch.evaluation import DualGNNPredictor, evaluate_pipeline
+    from lapgnn_tpu_torch.ops.cuda import greedy_total
+    from lapgnn_tpu_torch.ops.cuda.greedy import greedy_total_plain
+    from lapgnn_tpu_torch.train import dual_trainer
+    from lapgnn_tpu_torch.train.checkpoint import (build_model_from_meta, load_checkpoint,
+                                                   save_checkpoint)
+    from lapgnn_tpu_torch.train.convert import params_from_flax
+    from lapgnn_tpu_torch.train.schedule import make_optimizer, warmup_cosine
+
+    if train_data is None:
+        records, _, _ = _label_async(_train_jobs(seed))()
+        train_data = (_train_split(records), None, None)
+    data = train_data[0]
+    t_phase = time.perf_counter()
+    init, meta, _ = load_checkpoint(DUAL_CHECKPOINT)
+    train, val = data[EVAL_N]
+    cfg = dual_trainer.DualTrainConfig(
+        hidden=int(meta["hidden"]), layers=int(meta["layers"]), heads=int(meta["heads"]),
+        dropout=float(meta["dropout"]), lr=DUAL_TRAIN_LR, epochs=1, batch_size=DUAL_TRAIN_BATCH,
+        seed=seed)
+
+    # one epoch, counted: the steps and validation batches (their outputs
+    # stay device tensors) and every greedy call's arguments and result
+    steps, evals, greedy_calls, logs = [], [], [], []
+    with _wrapped(dual_trainer, "make_dual_train_step", _counting(steps)), \
+            _wrapped(dual_trainer, "make_dual_eval_step", _counting(evals)), \
+            _wrapped(loss_mod, "greedy_total", _capture(greedy_calls, clone=True)):
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best, history = dual_trainer.train_dual_gnn(train, val, cfg, log_fn=logs.append,
+                                                    init_params=init)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = _read_launches()
+
+    warm = logs[0].split()
+    loaded, total = (int(x) for x in warm[2].split("/"))
+    if warm[:2] != ["warm", "init:"] or loaded != total or total != len(_flat(init)):
+        raise AssertionError(f"warm start did not restore every leaf: {logs[0]!r}")
+    losses = [float(m["loss"]) for _, m in steps]
+    if len(steps) != -(-len(train) // DUAL_TRAIN_BATCH) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train steps {len(steps)}, losses {losses}")
+    moved = sum(not np.array_equal(a, _flat(init)[k]) for k, a in _flat(best).items())
+    if moved == 0:
+        raise AssertionError("training left every parameter where it started")
+    if not all(math.isfinite(g) for g in history["val_gap_median"]) or not history["val_gap_median"]:
+        raise AssertionError(f"validation gap median: {history['val_gap_median']}")
+    if launches["greedy_total"] != len(steps) + len(evals) or len(greedy_calls) != len(steps) + len(evals):
+        raise AssertionError(f"greedy kernel launched {launches['greedy_total']} times "
+                             f"({len(greedy_calls)} calls seen) for {len(steps)} train steps "
+                             f"and {len(evals)} validation batches")
+    greedy_err = 0.0
+    for i, (args, got) in enumerate(greedy_calls):
+        plain = greedy_total_plain(*args)
+        if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
+            raise AssertionError(f"greedy kernel differs from its plain loop (dual_train call {i})")
+        greedy_err = max(greedy_err, _max_abs_err(torch, got, plain))
+    greedy_shapes = sorted({tuple(a[0].shape) for a, _ in greedy_calls})
+    first_greedy = greedy_calls[0]
+    del greedy_calls
+
+    # the checkpoint the CLI would write, rebuilt from its meta and served
+    args = cli.build_parser().parse_args(
+        ["--train", "-", "--output", "-", "--hidden", str(cfg.hidden), "--layers", str(cfg.layers),
+         "--heads", str(cfg.heads), "--dropout", str(cfg.dropout), "--lr", str(cfg.lr),
+         "--batch-size", str(cfg.batch_size), "--epochs", str(cfg.epochs)])
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, best, cli.checkpoint_meta(args, history))
+        params, saved_meta, _ = load_checkpoint(tmp)
+    if any(not np.array_equal(a, _flat(best)[k]) for k, a in _flat(params).items()):
+        raise AssertionError("the saved checkpoint does not read back as trained")
+    served = evaluate_pipeline(
+        DualGNNPredictor(build_model_from_meta(saved_meta), params, seed_mode="auto"),
+        val[:1], time_solvers=False)
+    if served["feasible_rate"] != 1.0 or served["assist_rate"] != 1.0:
+        raise AssertionError(f"the trained DualGNN served: {served}")
+    serve = {k: served[k] for k in ("feasible_rate", "assist_rate", "fallback_rate",
+                                    "presolve_gap_clipped_median")}
+
+    # one step on the card against the CPU, r5's weights, dropout 0
+    B, n = DUAL_VS_CPU
+    rng = np.random.default_rng(seed + 64)
+    small = [instance_record(generate_synthetic_instance(f, n, rng)) for f in ("uniform", "block")][:B]
+    cost = torch.from_numpy(np.stack([r["cost"] for r in small]).astype(np.float32))
+    u = torch.from_numpy(np.stack([r["u"] for r in small]).astype(np.float32))
+    grads, vals, calls = {}, {}, []
+    for dev in ("cuda", "cpu"):
+        model = build_model_from_meta({**meta, "dropout": 0.0})
+        model.load_state_dict(params_from_flax(init))
+        model.to(dev)
+        names = [k for k, _ in model.named_parameters()]
+        with _wrapped(loss_mod, "greedy_total", _capture(calls)):
+            loss, _, g = dual_trainer.dual_loss_and_grads(model, list(model.parameters()),
+                                                          cost.to(dev), u.to(dev))
+        vals[dev] = float(loss.detach())
+        grads[dev] = {k: x.detach().cpu() for k, x in zip(names, g)}
+    rel = abs(vals["cuda"] - vals["cpu"]) / abs(vals["cpu"])
+    g_max = max(float(x.abs().max()) for x in grads["cpu"].values())
+    g_err = max(float((grads["cuda"][k] - grads["cpu"][k]).abs().max()) for k in grads["cpu"])
+    if rel > 1e-5 or g_err > 1e-4 * g_max + 1e-7:
+        raise AssertionError(f"card against CPU: loss rel {rel}, gradient err {g_err} (max |g| {g_max})")
+    cpu_args, gb_cpu = calls[-1]
+    gb_card = greedy_total(*(None if a is None else a.cuda() for a in cpu_args)).cpu()
+    if not torch.equal(gb_card.view(torch.int32), gb_cpu.view(torch.int32)):
+        raise AssertionError("greedy bound on the card differs from the CPU's")
+    card_vs_cpu = {"batch": B, "n": n, "loss_rel_err": rel, "grad_max_abs_err": g_err,
+                   "grad_tol": 1e-4 * g_max + 1e-7, "greedy_bound_bit_equal": True}
+    del calls, cpu_args, grads
+
+    # times: a step at r5's width and schedule, its stages, its peak memory
+    # and the device's idle share over one step
+    model = build_model_from_meta(meta)
+    model.load_state_dict(params_from_flax(init))
+    model.cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = make_optimizer(list(model.parameters()), warmup_cosine(cfg.lr, 1, 100),
+                         cfg.weight_decay, cfg.grad_clip)
+    step = dual_trainer.make_dual_train_step(model, opt)
+    gen = torch.Generator().manual_seed(seed)
+    stage_names = ("graph_features", "forward", "loss_with_greedy", "backward", "optimizer")
+    times = {}
+    for B, n in DUAL_TRAIN_TIMED:
+        cost, u = _tiled(torch, data[n][0], B)
+        step(cost, u, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step_ms = _ms_host(torch, lambda: step(cost, u, gen), 3)
+        peak = torch.cuda.max_memory_allocated()
+        cuts = [_stage_ms(torch, step, model, opt, cost, u, gen, owner=dual_trainer,
+                          features="graph_features", loss="dual_gnn_loss") for _ in range(3)]
+        rows, wall_ms = _profile(torch, lambda: step(cost, u, gen))
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        fwd_ms, by, flops = _dual_forward_bound_ms(n, cfg.hidden, cfg.layers, n_params)
+        step_flops = 3 * flops * B
+        times[f"{B}x{n}"] = {
+            "batch": B, "n": n, "step_ms_host_clock": step_ms,
+            "stage_ms": {name: statistics.median(c[i] for c in cuts)
+                         for i, name in enumerate(stage_names)},
+            "max_memory_allocated_bytes": peak, "memory_allocated_before_step_bytes": before,
+            "bound_ms": step_flops / F32_OPS_PER_S * 1e3, "bound_by": "operations",
+            "step_matrix_flops": step_flops, "tflops_per_s": step_flops / step_ms / 1e9,
+            "profiled_step_wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if rows else "not measured",
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if rows else "not measured",
+            "top_kernels": [{"name": k[:80], "device_ms": d / 1e3, "count": c}
+                            for d, k, c in rows[:6]],
+        }
+        del cost, u
+        torch.cuda.empty_cache()
+    del model, opt, step
+    torch.cuda.empty_cache()
+    # the greedy kernel on the epoch's first step's arguments, timed beside
+    # its plain loop (bit-equality held above for every call)
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    no_flush = torch.empty(1, dtype=torch.float32, device="cuda")
+    greedy = _greedy_against_plain(torch, *first_greedy, "the dual train step", flush, no_flush)
+    greedy_key = f"{greedy['batch']}x{greedy['n']}"
+    del first_greedy, flush
+
+    phase_s = time.perf_counter() - t_phase
+    _emit({
+        "phase": "dual_train",
+        "width": {"hidden": cfg.hidden, "layers": cfg.layers, "heads": cfg.heads,
+                  "dropout": cfg.dropout, "parameters": n_params},
+        "schedule": {"lr": cfg.lr, "batch": cfg.batch_size, "epochs": cfg.epochs,
+                     "clip_sentinels": cfg.clip_sentinels, "normalize_gap": cfg.normalize_gap,
+                     "supervise_duals": cfg.supervise_duals},
+        "instances": [len(train), len(val)], "n": EVAL_N, "train_seconds": train_s,
+        "steps": len(steps), "validation_batches": len(evals), "step_losses": losses,
+        "history": history, "log": logs, "leaves_moved": moved, "launches": launches,
+        "greedy_against_plain": {"calls": len(steps) + len(evals), "shapes": greedy_shapes,
+                                 "bit_equal": True, "max_abs_err": greedy_err},
+        "greedy": {greedy_key: greedy},
+        "checkpoint_meta_keys": sorted(saved_meta), "serve": serve, "card_vs_cpu": card_vs_cpu,
+        "times": times, "phase_seconds": phase_s,
+    })
+    if phase_s > DUAL_TRAIN_PHASE_LIMIT_S:
+        raise AssertionError(f"the dual_train phase took {phase_s:.1f} s, above "
+                             f"{DUAL_TRAIN_PHASE_LIMIT_S} s")
+    return {"launches": launches, "max_abs_err": greedy_err, "greedy": {greedy_key: greedy}}
 
 
 def _time_ms(torch, fn, reps, flush, queued=True, flush_by_read=False):
@@ -2110,7 +2362,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="comma-separated subset of build,compare,times,stream,train,eval "
+                    help="comma-separated subset of build,compare,times,stream,train,eval,"
+                         "dual_train "
                          "(no ok line)")
     args = ap.parse_args()
 
@@ -2138,7 +2391,8 @@ def main() -> int:
                       "times": lambda: phase_times(torch, args.seed),
                       "stream": lambda: phase_stream(torch, args.seed),
                       "train": lambda: phase_train(torch, args.seed),
-                      "eval": lambda: phase_eval(torch, args.seed)}
+                      "eval": lambda: phase_eval(torch, args.seed),
+                      "dual_train": lambda: phase_dual_train(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
@@ -2163,6 +2417,7 @@ def main() -> int:
         phase_stream(torch, args.seed)
         train = phase_train(torch, args.seed, train_data)
         evaluated = phase_eval(torch, args.seed, eval_records)
+        dual = phase_dual_train(torch, args.seed, train_data)
         times = phase_times(torch, args.seed)
     except Exception:
         traceback.print_exc()
@@ -2178,14 +2433,19 @@ def main() -> int:
             # arguments
             kernels.append({"name": kname, **info, **train,
                             "max_abs_err": max(errs[kname], train["max_abs_err"],
-                                               evaluated["max_abs_err"][kname]),
-                            "launches_eval": evaluated["launches"][kname], "card": card})
+                                               evaluated["max_abs_err"][kname],
+                                               dual["max_abs_err"]),
+                            "launches_eval": evaluated["launches"][kname],
+                            "launches_dual_train": dual["launches"][kname],
+                            **{f"at_{k}_dual_train": v for k, v in dual["greedy"].items()},
+                            "card": card})
             continue
         t = times[kname]
         kernels.append({
             "name": kname, **info,
             "launches": launches[kname],
             "launches_eval": evaluated["launches"][kname],
+            "launches_dual_train": dual["launches"][kname],
             "max_abs_err": max(errs[kname], evaluated["max_abs_err"].get(kname, 0.0)),
             "n": N_E2E,
             **t[N_E2E],

@@ -1,2 +1,3 @@
-"""Cost-matrix families, labelled synthetic instances and HDF5 dataset IO
-(numpy, SciPy; ``h5py`` only when a file is opened)."""
+"""Cost-matrix families, labelled synthetic instances, split planning, real
+instances from local files and HDF5 dataset IO (numpy, SciPy; ``h5py`` only
+when a file is opened)."""

@@ -10,13 +10,13 @@ imported only when a file is opened, so the port imports without it.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Iterator, Union
+from typing import Any, Dict, Iterator, List, Sequence, Union
 
 import numpy as np
 
 from .synthetic import SyntheticInstance
 
-__all__ = ["H5Writer", "H5Reader"]
+__all__ = ["H5Writer", "H5Reader", "read_records"]
 
 _VLEN_F64 = ("C", "u", "v")
 _VLEN_I32 = ("rows", "cols")
@@ -121,3 +121,13 @@ class H5Reader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def read_records(paths: Sequence[Union[str, Path]]) -> List[Dict[str, Any]]:
+    """Every record of every file, in order: what the training CLIs hand
+    their trainers."""
+    out: List[Dict[str, Any]] = []
+    for path in paths:
+        with H5Reader(path) as r:
+            out.extend(r.iter())
+    return out

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.features import EDGE_FEATURE_DIM, NODE_FEATURE_DIM
 from .one_gnn import dropout
 
-__all__ = ["DualGNN", "DualLayer"]
+__all__ = ["DualGNN", "DualLayer", "attention_init_"]
 
 _LN_EPS = 1e-5
 _EDGE_HIDDEN = 128
@@ -42,6 +42,18 @@ _EDGE_HIDDEN = 128
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
+
+
+def attention_init_(weight: torch.Tensor, generator: Optional[torch.Generator] = None) -> None:
+    """flax's ``xavier_uniform`` on a (heads, 3, head_dim) attention weight:
+    fan_in = 3·heads and fan_out = head_dim·heads (flax reads the last two
+    axes as in and out and the first as the receptive field), so the limit
+    is sqrt(6 / (3·heads + head_dim·heads)).  ``nn.init.xavier_uniform_``
+    reads the first two axes and would take 3·head_dim and heads·head_dim."""
+    heads, three, head_dim = weight.shape
+    limit = (6.0 / (three * heads + head_dim * heads)) ** 0.5
+    with torch.no_grad():
+        weight.uniform_(-limit, limit, generator=generator)
 
 
 class DualLayer(nn.Module):
@@ -63,8 +75,8 @@ class DualLayer(nn.Module):
         self.attn_col = nn.Parameter(torch.empty(heads, 3, self.head_dim))
         self.attn_row_bias = nn.Parameter(torch.zeros(heads))
         self.attn_col_bias = nn.Parameter(torch.zeros(heads))
-        nn.init.xavier_uniform_(self.attn_row)
-        nn.init.xavier_uniform_(self.attn_col)
+        attention_init_(self.attn_row)
+        attention_init_(self.attn_col)
         self.edge_fc1 = nn.Linear(EDGE_FEATURE_DIM, _EDGE_HIDDEN)
         self.edge_fc2 = nn.Linear(_EDGE_HIDDEN, _EDGE_HIDDEN)
         self.edge_fc3 = nn.Linear(_EDGE_HIDDEN, hidden_dim)

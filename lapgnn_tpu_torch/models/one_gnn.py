@@ -1,9 +1,11 @@
 """OneGNN: per-row dual predictor with sparse top-k refinement (torch.nn).
 
 Port of ``lapgnn_tpu/models/one_gnn.py`` (``OneGNN`` :63, ``ResidualBlock``
-:47).  A residual MLP stack over the 21-D row features predicts row duals u;
-the top-k smallest reduced costs of each row feed an attention-weighted
-edge-MLP message.  Exact GELU and LayerNorm eps 1e-5, as in the flax model.
+:47, ``_global_context`` :136, ``_topk_smallest_iter`` :30).  A residual MLP
+stack over the 21-D row features predicts row duals u; the top-k smallest
+reduced costs of each row feed an attention-weighted edge-MLP message;
+``context=True`` mixes a masked mean and max pool over the rows back into
+every row.  Exact GELU and LayerNorm eps 1e-5, as in the flax model.
 
 The submodules follow the original PyTorch OneGNN's layout (``input_proj``
 = Linear, GELU, LayerNorm; ``row_out`` = Linear, GELU, Dropout, Linear;
@@ -33,6 +35,7 @@ from ..ops.dual import center_gauge
 __all__ = ["OneGNN", "ResidualBlock", "dropout"]
 
 _LN_EPS = 1e-5
+_TOPK_IMPLS = ("top_k", "iter")
 
 
 def dropout(
@@ -68,16 +71,33 @@ class ResidualBlock(nn.Module):
         return self.norm(x + y)
 
 
+def _topk_smallest_iter(reduced: torch.Tensor, k: int) -> torch.Tensor:
+    """The k smallest values of each row, ascending, duplicates kept: k
+    rounds of argmin (the first index of a tie, as ``jnp.argmin``), each
+    taking its value and setting its entry to +inf.  Equal to the values of
+    ``torch.topk(-reduced, k)``, negated."""
+    r = reduced
+    values = []
+    for _ in range(k):
+        j = torch.argmin(r, dim=-1, keepdim=True)
+        values.append(torch.gather(r, -1, j)[..., 0])
+        r = r.scatter(-1, j, torch.inf)
+    return torch.stack(values, dim=-1)
+
+
 class OneGNN(nn.Module):
     """Row-dual predictor.
 
-    ``forward(row_feat, cost=None, generator=None)``: row_feat (B, n, F) or
-    (n, F); cost (B, n, n) activates the top-k refinement; a generator turns
-    dropout on.  Returns {"u": (B, n)}, mean-centered per instance.
+    ``forward(row_feat, cost=None, generator=None, mask=None)``: row_feat
+    (B, n, F) or (n, F); cost (B, n, n) activates the top-k refinement; a
+    generator turns dropout on; mask (B, n) or (n,) bool marks the valid
+    rows.  Returns {"u": (B, n)}, mean-centered per instance (over every
+    row, as flax's), masked rows 0.
 
-    ``context=True`` (the DeepSets global context) and ``topk_impl="iter"``
-    (the sharded top-k) are not ported yet; ``artifacts/one_gnn_default``
-    uses neither.
+    ``context=True`` adds the DeepSets global context (flax ``ctx_fc1``,
+    ``ctx_fc2``, ``ctx_norm``).  ``topk_impl="iter"`` takes the top k by k
+    rounds of argmin instead of ``torch.topk`` (the JAX package's form for a
+    row-sharded cost); the values, and so the output, are the same.
     """
 
     def __init__(
@@ -91,24 +111,25 @@ class OneGNN(nn.Module):
         topk_impl: str = "top_k",
     ):
         super().__init__()
-        if context:
-            raise NotImplementedError(
-                "OneGNN(context=True) is not ported yet (see ROADMAP.md)"
-            )
-        if topk_impl != "top_k":
-            raise NotImplementedError(
-                f"OneGNN(topk_impl={topk_impl!r}) is not ported yet; only 'top_k'"
-            )
+        if topk_impl not in _TOPK_IMPLS:
+            raise ValueError(f"topk_impl must be one of {_TOPK_IMPLS}, got {topk_impl!r}")
         self.hidden = hidden
         self.layers = layers
         self.dropout = dropout
         self.topk = topk
+        self.context = context
+        self.topk_impl = topk_impl
         head_hidden = max(hidden // 2, 1)
         # flax: input_proj (Dense) + input_norm (LayerNorm)
         self.input_proj = nn.Sequential(
             nn.Linear(in_dim, hidden), nn.GELU(approximate="none"),
             nn.LayerNorm(hidden, eps=_LN_EPS),
         )
+        if context:
+            # flax: ctx_fc1, ctx_fc2, ctx_norm
+            self.ctx_fc1 = nn.Linear(2 * hidden, hidden)
+            self.ctx_fc2 = nn.Linear(hidden, hidden)
+            self.ctx_norm = nn.LayerNorm(hidden, eps=_LN_EPS)
         # flax: block_0 .. block_{layers-1}
         self.blocks = nn.ModuleList(ResidualBlock(hidden, dropout) for _ in range(layers))
         # flax: pre_out
@@ -131,19 +152,43 @@ class OneGNN(nn.Module):
         row_feat: torch.Tensor,
         cost: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        mask: Optional[torch.Tensor] = None,
     ) -> dict:
         if row_feat.ndim == 2:
             row_feat = row_feat[None]
+        if mask is not None and mask.ndim == 1:
+            mask = mask[None]
         h = self.input_proj(row_feat)
+        if self.context:
+            h = self._global_context(h, mask)
         for block in self.blocks:
             h = block(h, generator)
         u_pre = self.pre_out(h)[..., 0]
         if cost is not None:
-            h = h + self._sparse_refine(h, cost, u_pre, generator)
+            h = h + self._sparse_refine(h, cost, u_pre, generator, mask)
         head_fc1, gelu, _, head_fc2 = self.row_out
         y = dropout(gelu(head_fc1(h)), self.dropout, generator)
-        u = head_fc2(y)[..., 0]
-        return {"u": center_gauge(u)}
+        u = center_gauge(head_fc2(y)[..., 0])
+        if mask is not None:
+            u = torch.where(mask, u, 0.0)
+        return {"u": u}
+
+    def _global_context(self, h: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Masked mean and max pool over the rows, an MLP, added back to
+        every row under a LayerNorm.  Masked rows move neither pool, so a
+        padded batch gets the unpadded instance's context."""
+        if mask is not None:
+            m = mask[..., None]  # (B, n, 1)
+            cnt = torch.clamp_min(m.sum(-2).to(h.dtype), 1.0)
+            mean = torch.where(m, h, 0.0).sum(-2) / cnt
+            mx = torch.where(m, h, -torch.inf).amax(-2)
+            mx = torch.where(torch.isfinite(mx), mx, 0.0)
+        else:
+            mean = h.mean(-2)
+            mx = h.amax(-2)
+        g = self.ctx_fc1(torch.cat([mean, mx], dim=-1))  # (B, 2H) -> (B, H)
+        g = self.ctx_fc2(nn.functional.gelu(g, approximate="none"))
+        return self.ctx_norm(h + g[..., None, :])
 
     def _sparse_refine(
         self,
@@ -151,23 +196,32 @@ class OneGNN(nn.Module):
         cost: torch.Tensor,
         u_pre: torch.Tensor,
         generator: Optional[torch.Generator] = None,
+        mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Top-k smallest reduced-cost aggregation: softmax of the negated
         k smallest entries of (C - u_pre) weights an edge-MLP embedding of
-        those values."""
+        those values.  A masked row's reduced costs are +inf, its message 0."""
         k = min(self.topk, cost.shape[-1])
         if k <= 0 or h.shape[-2] == 0:
             return torch.zeros_like(h)
         reduced = cost - u_pre[..., :, None]
+        if mask is not None:
+            reduced = torch.where(mask[..., :, None], reduced, torch.inf)
         # Only the values of the top k are used, never their indices, so the
         # order in which ties come out (lax.top_k's versus torch.topk's) does
         # not change the result.
-        neg_vals = torch.topk(-reduced, k, dim=-1).values  # (B, n, k)
-        values = -neg_vals
+        if self.topk_impl == "iter":
+            values = _topk_smallest_iter(reduced, k)  # (B, n, k) ascending
+            neg_vals = -values
+        else:
+            neg_vals = torch.topk(-reduced, k, dim=-1).values  # (B, n, k)
+            values = -neg_vals
         valid = torch.isfinite(values)
         scores = torch.where(valid, neg_vals, -torch.inf)
         weights = torch.where(valid, torch.softmax(scores, dim=-1), 0.0)
         edge_in = torch.where(valid, values, 0.0)[..., None]  # (B, n, k, 1)
         e = self.edge_mlp(edge_in)  # (B, n, k, H)
         message = (weights[..., None] * e).sum(-2)
+        if mask is not None:
+            message = message * mask[..., :, None]
         return self.message_norm(dropout(message, self.dropout, generator))

@@ -11,7 +11,8 @@ writes is one the JAX package reads.  A DualGNN tree (it has
 ``row_encoder_fc``) maps onto ``models.DualGNN``: ``layer_{i}`` becomes
 ``layer.{i}``, a bias-free Dense (the projections) has no bias, and the
 attention weights ``attn_row`` / ``attn_col`` (heads, 3, head_dim) and their
-biases are copied as they are.
+biases are copied as they are.  A OneGNN with the global context carries
+``ctx_fc1``, ``ctx_fc2`` and ``ctx_norm`` under the same names in both.
 """
 
 from __future__ import annotations
@@ -106,6 +107,10 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     _lin(p["input_proj"], "input_proj.0", sd)
     _ln(p["input_norm"], "input_proj.2", sd)
+    if "ctx_fc1" in p:  # OneGNN(context=True)
+        _lin(p["ctx_fc1"], "ctx_fc1", sd)
+        _lin(p["ctx_fc2"], "ctx_fc2", sd)
+        _ln(p["ctx_norm"], "ctx_norm", sd)
     for i in range(layers):
         blk = p[f"block_{i}"]
         _lin(blk["fc1"], f"blocks.{i}.fc1", sd)
@@ -149,6 +154,10 @@ def params_to_flax(state_dict: Dict[str, torch.Tensor], refine: bool = True) -> 
             "norm": ln(f"blocks.{i}.norm"),
         }
     p["pre_out"] = lin("pre_out")
+    if "ctx_fc1.weight" in sd:
+        p["ctx_fc1"] = lin("ctx_fc1")
+        p["ctx_fc2"] = lin("ctx_fc2")
+        p["ctx_norm"] = ln("ctx_norm")
     if refine:
         p["edge_fc1"] = lin("edge_mlp.0")
         p["edge_fc2"] = lin("edge_mlp.2")

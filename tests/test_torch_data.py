@@ -1,8 +1,10 @@
 """The port's data slice against the JAX package's: host dual oracle,
-generators, labelled synthetic instances, the trainers' batch samplers and
-HDF5 datasets.  Everything here is numpy and SciPy on both sides, so each
+generators, labelled synthetic instances, the trainers' batch samplers,
+HDF5 datasets, split planning and the real-instance parsers.  Everything here is numpy and SciPy on both sides, so each
 result must be equal, array for array.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -177,3 +179,74 @@ def test_round_robin_sampler_sequence_equals_jax():
     spec = ts[1]
     _equal(tprog.RoundRobinSampler.materialize(spec, np.array([2, 0])),
            jprog.RoundRobinSampler.materialize(js[1], np.array([2, 0])))
+
+
+# ---------------------------------------------------------------- splits and real instances
+
+REAL = sorted((Path(__file__).resolve().parent.parent / "data" / "real").iterdir())
+
+
+@pytest.mark.parametrize("count,ratios", [
+    (0, (0.8, 0.1, 0.1)), (1, (0.8, 0.1, 0.1)), (10, (0.8, 0.1, 0.1)), (7, (0.6, 0.4, 0.0)),
+    (33, (1.0, 2.0, 3.0)), (5, (0.0, 0.0, 1.0)),
+])
+def test_plan_bucket_equals_jax(count, ratios):
+    """The labels and what is left of the numpy Generator are equal."""
+    from lapgnn_tpu.data.splits import plan_bucket as jplan
+    from lapgnn_tpu_torch.data.splits import plan_bucket as tplan
+
+    r = dict(zip(("train", "val", "test"), ratios))
+    jr, tr = np.random.default_rng(count), np.random.default_rng(count)
+    assert tplan(count, r, tr) == jplan(count, r, jr)
+    assert tr.random() == jr.random()
+
+
+def test_plan_bucket_rejects_zero_ratios_and_bucket_assignments_equal_jax():
+    from lapgnn_tpu.data.splits import iter_bucket_assignments as jiter
+    from lapgnn_tpu_torch.data.splits import iter_bucket_assignments, plan_bucket
+
+    with pytest.raises(ValueError):
+        plan_bucket(3, {"train": 0.0}, np.random.default_rng(0))
+    counts = [("uniform_64", 9), ("tie_128", 4), ("sparse_64", 0)]
+    ratios = {"train": 0.7, "val": 0.2, "test": 0.1}
+    assert list(iter_bucket_assignments(counts, ratios, seed=3)) == list(jiter(counts, ratios, seed=3))
+
+
+@pytest.mark.parametrize("path", REAL, ids=lambda p: p.name)
+def test_real_parsers_equal_jax(path):
+    """Each file of ``data/real`` through the parser its name selects, on
+    both packages: name, source and cost matrix equal (float64); then
+    ``normalize_cost_matrix`` of it, and the STRING parser's node cap."""
+    from lapgnn_tpu.data import processors as jp
+    from lapgnn_tpu_torch.data import processors as tp
+
+    (want,) = list(jp.iter_real_instances([path]))
+    (got,) = list(tp.iter_real_instances([path]))
+    assert isinstance(got, tp.RealInstance)
+    assert (got.name, got.source) == (want.name, want.source)
+    _equal(got.cost, want.cost)
+    _equal(tp.normalize_cost_matrix(got.cost), jp.normalize_cost_matrix(want.cost))
+    if got.source == "string":
+        _equal(tp.string_links_to_cost(path, max_nodes=7).cost,
+               jp.string_links_to_cost(path, max_nodes=7).cost)
+
+
+def test_real_parsers_reject_bad_files_and_fetch_is_gated(tmp_path, monkeypatch):
+    """Truncated, empty and non-integer ``.assign`` files raise ValueError as
+    JAX's do; an unknown file is skipped with a warning; a constant matrix
+    normalises to zeros; ``fetch_suitesparse`` raises without the opt-in."""
+    from lapgnn_tpu_torch.data import processors as tp
+
+    for text in ("3\n1 2 3\n", "", "x 1 2", "-1"):
+        f = tmp_path / "bad.assign"
+        f.write_text(text)
+        with pytest.raises(ValueError):
+            tp.parse_orlib_assign(f)
+    other = tmp_path / "notes.txt"
+    other.write_text("hello")
+    with pytest.warns(UserWarning):
+        assert list(tp.iter_real_instances([other])) == []
+    assert not tp.normalize_cost_matrix(np.full((3, 3), 2.0)).any()
+    monkeypatch.delenv("LAPGNN_ALLOW_FETCH", raising=False)
+    with pytest.raises(RuntimeError, match="LAPGNN_ALLOW_FETCH"):
+        tp.fetch_suitesparse("bcsstk01")

@@ -139,13 +139,130 @@ def test_default_checkpoint_forward_matches_flax():
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        OneGNN(context=True)
-    with pytest.raises(NotImplementedError):
-        OneGNN(topk_impl="iter")
+    """Every OneGNN variant of the JAX package is ported now: ``context=True``
+    and ``topk_impl="iter"`` build (held to flax below); an unknown top-k
+    form, or an unknown architecture in a checkpoint's meta, raises."""
+    assert OneGNN(context=True).context and OneGNN(topk_impl="iter").topk_impl == "iter"
+    with pytest.raises(ValueError):
+        OneGNN(topk_impl="sort")
     # DualGNN is ported: its meta builds the model (tests/test_torch_dual_gnn.py)
     from lapgnn_tpu_torch.models import DualGNN
 
     assert isinstance(build_model_from_meta({"architecture": "dual_gnn"}), DualGNN)
     with pytest.raises(ValueError):
         build_model_from_meta({"architecture": "nope"})
+
+
+# ---------------------------------------------------------------- context, mask, iterative top-k
+
+
+_row_features = jax.jit(row_features)
+
+
+@pytest.fixture(scope="module")
+def context_model():
+    """A random flax OneGNN with the global context and the top-k
+    refinement (hidden 16, 2 layers, top-k 4), a batch of 3 instances at
+    n = 10 and a row mask (instance 1 keeps 6 rows, instance 2 every other
+    row), and its apply jitted (one compile with a mask, one without)."""
+    model = FlaxOneGNN(hidden=16, layers=2, dropout=0.0, topk=4, context=True)
+    rng = np.random.default_rng(21)
+    cost = np.stack([FAMILIES[f](10, rng) for f in ("uniform", "tie", "block")]).astype(np.float32)
+    feats = np.asarray(_row_features(jnp.asarray(cost)))
+    init = jax.jit(lambda key, f, c: model.init(key, f, cost=c))
+    params = jax.tree_util.tree_map(np.asarray, init(jax.random.key(4), jnp.asarray(feats),
+                                                     jnp.asarray(cost)))
+    mask = np.ones((3, 10), bool)
+    mask[1, 6:] = False
+    mask[2, 1::2] = False
+    apply = jax.jit(lambda p, f, c, m: model.apply(p, f, cost=c, mask=m))
+    return params, apply, cost, feats, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("topk_impl", ["top_k", "iter"])
+def test_context_and_mask_match_flax(context_model, masked, topk_impl):
+    """OneGNN(context=True) with the top-k refinement, with and without a
+    row mask, in both top-k forms: within 1e-6·max(1, max|u|) of flax
+    (float32 sums in another order; the widths are small, so fewer terms
+    meet in a sum than in the 1e-5 tests above).  Masked rows are exactly 0."""
+    params, apply, cost, feats, mask = context_model
+    want = np.asarray(apply(params, jnp.asarray(feats), jnp.asarray(cost),
+                            jnp.asarray(mask) if masked else None)["u"])
+    tm = OneGNN(hidden=16, layers=2, dropout=0.0, topk=4, context=True, topk_impl=topk_impl)
+    tm.load_state_dict(params_from_flax(params))
+    with torch.no_grad():
+        got = tm(_t(feats), cost=_t(cost), mask=_t(mask) if masked else None)["u"].numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * max(1.0, float(np.abs(want).max())))
+    if masked:
+        assert not got[~mask].any()
+
+
+def test_masked_rows_do_not_move_the_context(context_model):
+    """A padded instance (garbage in its padded rows, masked) gives its
+    valid rows the u of the unpadded instance, up to the gauge: the
+    masked mean and max pools, the top-k refinement and the head see only
+    the valid rows (u is centred over all rows, as flax's, so the valid rows
+    shift by one constant)."""
+    params, _, cost, feats, _ = context_model
+    tm = OneGNN(hidden=16, layers=2, dropout=0.0, topk=4, context=True)
+    tm.load_state_dict(params_from_flax(params))
+    n = 6
+    small_cost = cost[:1, :n, :n]
+    small_feats = np.asarray(_row_features(jnp.asarray(small_cost)))
+    pad_feats = np.concatenate([small_feats, np.full((1, 4, small_feats.shape[-1]), 7.0, np.float32)], 1)
+    pad_cost = np.full((1, 10, 10), 1e3, np.float32)
+    pad_cost[:, :n, :n] = small_cost
+    mask = np.arange(10)[None] < n
+    with torch.no_grad():
+        want = tm(_t(small_feats), cost=_t(small_cost))["u"].numpy()
+        got = tm(_t(pad_feats), cost=_t(pad_cost[:, :, :n]), mask=_t(mask))["u"].numpy()
+    shift = got[0, :n] - want[0]
+    np.testing.assert_allclose(shift, shift.mean(), rtol=0, atol=1e-5)
+    assert not got[0, n:].any()
+
+
+def test_topk_iter_equals_top_k_bit_for_bit():
+    """The iterative top k against ``torch.topk`` and against the JAX
+    package's ``_topk_smallest_iter``, bit for bit, on rows full of ties
+    (the tie family, small integers), with +inf entries and whole +inf rows
+    (masked rows), k from 1 to the row's length; and a model in each form
+    gives bit-equal u."""
+    from lapgnn_tpu.models.one_gnn import _topk_smallest_iter as j_iter
+    from lapgnn_tpu_torch.models.one_gnn import _topk_smallest_iter
+
+    rng = np.random.default_rng(8)
+    rows = np.concatenate([
+        FAMILIES["tie"](9, rng).astype(np.float32),
+        rng.integers(0, 3, size=(9, 9)).astype(np.float32),
+        np.where(rng.random((4, 9)) < 0.3, np.inf, rng.normal(size=(4, 9))).astype(np.float32),
+        np.full((2, 9), np.inf, np.float32),
+    ])[None]
+    for k in (1, 4, 9):
+        got = _topk_smallest_iter(_t(rows), k).numpy()
+        want = (-torch.topk(-_t(rows), k, dim=-1).values).numpy()
+        assert got.tobytes() == want.tobytes(), k
+        assert got.tobytes() == np.asarray(jax.jit(j_iter, static_argnums=1)(rows, k)).tobytes(), k
+    m_top = OneGNN(hidden=16, layers=1, dropout=0.0, topk=4)
+    m_iter = OneGNN(hidden=16, layers=1, dropout=0.0, topk=4, topk_impl="iter")
+    m_iter.load_state_dict(m_top.state_dict())
+    feats = np.asarray(_row_features(jnp.asarray(rows[:, :9])))
+    with torch.no_grad():
+        a = m_top(_t(feats), cost=_t(rows[:, :9]))["u"].numpy()
+        b = m_iter(_t(feats), cost=_t(rows[:, :9]))["u"].numpy()
+    assert a.tobytes() == b.tobytes()
+
+
+def test_context_tree_converts_both_ways_and_builds_from_meta(context_model):
+    """A context tree maps to a state dict with ``ctx_fc1``, ``ctx_fc2``,
+    ``ctx_norm`` and back bit for bit; a ``context: true`` meta builds a
+    model that loads it."""
+    from lapgnn_tpu_torch.train import params_to_flax
+
+    params = context_model[0]
+    sd = params_from_flax(params)
+    assert {"ctx_fc1.weight", "ctx_fc2.bias", "ctx_norm.weight"} <= set(sd)
+    _tree_equal(params_to_flax(sd), jax.tree_util.tree_map(np.asarray, params))
+    model = build_model_from_meta({"architecture": "one_gnn", "hidden": 16, "layers": 2,
+                                   "topk": 4, "context": True})
+    model.load_state_dict(sd)

@@ -297,6 +297,10 @@ def test_port_imports_no_jax():
         "import lapgnn_tpu_torch.evaluation, lapgnn_tpu_torch.models.dual_gnn\n"
         "import lapgnn_tpu_torch.ops.padding, lapgnn_tpu_torch.data.h5io\n"
         "import lapgnn_tpu_torch.cli.eval, lapgnn_tpu_torch.cli.accuracy_ladder\n"
+        "import lapgnn_tpu_torch.train.dual_trainer, lapgnn_tpu_torch.data.splits\n"
+        "import lapgnn_tpu_torch.data.processors, lapgnn_tpu_torch.cli.generate_dataset\n"
+        "import lapgnn_tpu_torch.cli.regenerate_assignments, lapgnn_tpu_torch.cli.train_one_gnn\n"
+        "import lapgnn_tpu_torch.cli.train_progressive, lapgnn_tpu_torch.cli.train_dual_gnn\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'msgpack'))"
         " or m == 'lapgnn_tpu' or m.startswith('lapgnn_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream,train,eval,dual_train]
+    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream,train,eval,dual_train,front_ends]
 
 ``--phases`` runs a subset (for a first look at a changed kernel,
 ``build,stream`` after a change to the transfer layer, ``build,train`` after
 one to the training path, ``build,eval`` after one to the evaluation path,
-``build,dual_train`` after one to DualGNN training) and then prints no
+``build,dual_train`` after one to DualGNN training, ``build,front_ends``
+after one to the solver front ends or the benchmark CLIs) and then prints no
 ``ok`` line; with no arguments every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
@@ -121,7 +122,20 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      device's idle share over one step (torch.profiler); the greedy kernel
      timed beside its plain loop on the first step's arguments.  At most
      60 s.
- 11. Times: each kernel and its plain version at n = 2048 and 8192 beside
+ 11. Front ends: the benchmark and profiling CLIs in process on
+     ``artifacts/one_gnn_default`` at its full width (``cli.benchmark``
+     device mode at n = 2048 on uniform and sparse, ``cli.profile_pipeline``
+     at 2048, ``cli.benchmark_by_type`` at 512, ``cli.comprehensive_benchmark``
+     at 512 and 1024, ``cli.large_scale_benchmark`` device mode at 4096,
+     ``cli.main_benchmark --quick``, ``bench.regression --device`` at 1024),
+     every assignment the pipeline returned there equal in float64 to
+     SciPy's optimum (1e-12 relative); ``TorchSolver`` and
+     ``SeededTorchSolver`` in float32 at n = 2048 (within n 2^-23 max|C| of
+     the optimum), ``verify_solver_correctness`` with all seven solver
+     classes at n = 1024 on uniform and sparse, ``LAPMODSolver`` on sparse at
+     2048 and the route that answered; K1-K4 launched, each of their calls
+     held against its plain version as in the eval phase.  At most 60 s.
+ 12. Times: each kernel and its plain version at n = 2048 and 8192 beside
      its bound (the larger of the bytes it must move over the HBM rate and
      the float32 operations over the card's float32 rate).  Median of
      CUDA-event timings, all reps queued behind a spin kernel so the host's
@@ -155,6 +169,7 @@ from pathlib import Path
 # H100 SXM data-sheet peaks (dense, no sparsity), at a 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12  # float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
 
 K3_RTOL, K3_ATOL = 2e-5, 2e-6
 N_E2E = 2048
@@ -241,7 +256,7 @@ def _nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _bound_ms(name: str, B: int, n: int, m: int):
+def _bound_ms(name: str, B: int, n: int, m: int, itemsize: int = 4):
     """Least time for the function on these inputs: each input read once and
     each output written once over the HBM rate, against its float32
     operations over the float32 rate.  K1 does one compare per element, K2 a
@@ -250,7 +265,8 @@ def _bound_ms(name: str, B: int, n: int, m: int):
     are integer compares whose count depends on the selection algorithm and
     which the rate table does not cover, so K3 is held to the bytes bound.
     K4 reads C and v and writes min1, min2 and the int32 argmin; it does a
-    subtract and two compares per element.  The greedy bound reads the
+    subtract and two compares per element (``itemsize`` 8: its float64
+    form, against the float64 rate).  The greedy bound reads the
     reduced costs once, one chosen cost a row and the int64 order, writes a
     total an instance, and compares each entry once a step it is read; its
     scan is sequential, so its real floor, n steps of latency, is reported
@@ -261,7 +277,9 @@ def _bound_ms(name: str, B: int, n: int, m: int):
     elif name == "min_trick":
         nbytes, ops = B * n * m * f32 + B * n * f32 + B * m * f32, 2 * B * n * m
     elif name == "two_min":
-        nbytes, ops = B * n * m * f32 + B * m * f32 + 3 * B * n * f32, 3 * B * n * m
+        f = itemsize
+        nbytes = B * n * m * f + B * m * f + 2 * B * n * f + B * n * 4
+        ops = 3 * B * n * m * (F32_OPS_PER_S / F64_OPS_PER_S if f == 8 else 1)
     elif name == "greedy_total":
         # red read once, the n chosen costs, the int64 order, the totals
         nbytes, ops = B * n * m * f32 + B * n * f32 + B * n * 8 + B * f32, B * n * m
@@ -338,17 +356,18 @@ def _batch(torch, n, seed, fams=("uniform", "tie")):
 
 
 def _check_two_min(torch, got, want, what):
-    """K4 against its plain version: argmin equal, min1 and min2 bit-equal
-    (NaN where the plain version has NaN).  Returns the largest absolute
-    difference over the finite entries."""
+    """K4 against its plain version (float32 or float64): argmin equal, min1
+    and min2 bit-equal (NaN where the plain version has NaN).  Returns the
+    largest absolute difference over the finite entries."""
     if not torch.equal(got[2], want[2]):
         raise AssertionError(f"two_min argmin differs from its plain version ({what})")
     err = 0.0
     for g, w in zip(got[:2], want[:2]):
         nan = torch.isnan(w)
-        if not torch.equal(torch.isnan(g), nan):
-            raise AssertionError(f"two_min NaN pattern differs ({what})")
-        if not torch.equal(g[~nan].view(torch.int32), w[~nan].view(torch.int32)):
+        if g.dtype != w.dtype or not torch.equal(torch.isnan(g), nan):
+            raise AssertionError(f"two_min dtype or NaN pattern differs ({what})")
+        bits = torch.int64 if w.dtype == torch.float64 else torch.int32
+        if not torch.equal(g[~nan].view(bits), w[~nan].view(bits)):
             raise AssertionError(f"two_min values differ from its plain version ({what})")
         fin = torch.isfinite(w)
         if fin.any():
@@ -573,6 +592,14 @@ def phase_compare(torch, seed):
         for force in ({"state": s, "unroll": r} for s in ("keys", "floats") for r in (4, 1)):
             _check_two_min(torch, two_min_kernel(S, v, **force), two_min_plain(S, v),
                            f"inf/NaN rows, n={n}, {force}")
+        # float64 (the device solver's float64 solves), both of its unrolls
+        C64, v64, S64 = C.double(), v.double(), S.double()
+        errs["two_min"] = max(errs["two_min"], _check_two_min(
+            torch, two_min(C64, v64), two_min_plain(C64, v64), f"float64, n={n}"))
+        for r in (4, 1):
+            _check_two_min(torch, two_min_kernel(S64, v64, unroll=r), two_min_plain(S64, v64),
+                           f"float64 inf/NaN rows, n={n}, unroll {r}")
+        del C64, S64
         rel = ((k3 - sort_path).abs() / (sort_path.abs() + K3_ATOL / K3_RTOL)).amax((0, 1))
         detail.append({"n": n, "k3_max_abs_err": e3,
                        "k3_vs_sort_path_max_rel_per_channel": [float(x) for x in rel]})
@@ -591,9 +618,13 @@ def phase_compare(torch, seed):
         errs["row_features_stats"] = max(errs["row_features_stats"], e3)
         errs["two_min"] = max(errs["two_min"], _check_two_min(
             torch, two_min(C, v), two_min_plain(C, v), what))
+        _check_two_min(torch, two_min(C.double(), v.double()),
+                       two_min_plain(C.double(), v.double()), f"float64, {what}")
         if m >= 7:
             S = _nan_inf_rows(torch, C)
             _check_two_min(torch, two_min(S, v), two_min_plain(S, v), f"inf/NaN rows, {what}")
+            _check_two_min(torch, two_min(S.double(), v.double()),
+                           two_min_plain(S.double(), v.double()), f"float64 inf/NaN rows, {what}")
         hold_col_min(C, torch.randn((2, rows), generator=gc, device="cuda") * 0.3, what)
         ragged.append({"rows": rows, "m": m, "k3_max_abs_err": e3,
                        "k3_path": row_features_geometry(m, True).path,
@@ -2046,6 +2077,374 @@ def phase_dual_train(torch, seed, train_data=None):
     return {"launches": launches, "max_abs_err": greedy_err, "greedy": {greedy_key: greedy}}
 
 
+# The front_ends phase: the benchmark and profiling CLIs, the regression
+# bench and the solver classes, on artifacts/one_gnn_default at its full width.
+FRONT_N = 2048
+FRONT_BY_TYPE_N = 512
+FRONT_COMPREHENSIVE_N = (512, 1024)
+FRONT_LARGE_N = 4096
+FRONT_REGRESSION_N = 1024
+FRONT_VERIFY_N = 1024
+FRONT_ENDS_PHASE_LIMIT_S = 60.0
+
+
+@contextlib.contextmanager
+def _recording_front_ends():
+    """Every instance the port's generators make (float64), every
+    (float32 input, assignment) the pipeline's ``solve`` or the batched
+    device solver that ``profile_pipeline`` times returns, and every SciPy
+    solve the CLIs time, for the float64 optimality hold (which then needs
+    no SciPy solve of its own for an instance a CLI solved)."""
+    import numpy as np
+    import scipy.optimize
+
+    import lapgnn_tpu_torch.data.generators as gen_mod
+    import lapgnn_tpu_torch.pipeline as pipeline_mod
+    import lapgnn_tpu_torch.utils.profiling as profiling_mod
+
+    made, solved, scipy_solved = [], [], []
+    real_lsa = scipy.optimize.linear_sum_assignment
+    fams = gen_mod.FAMILIES
+    real_fams = dict(fams)
+    real_uniform = gen_mod.generate_uniform_costs
+    real_solve = pipeline_mod.WarmStartPipeline.solve
+    real_batch = profiling_mod.lapjv_seeded_batch
+
+    def keep(fn):
+        def run(*args, **kwargs):
+            C = fn(*args, **kwargs)
+            made.append(C)
+            return C
+
+        return run
+
+    def host32(cost):
+        a = np.asarray(pipeline_mod._host_array(cost), np.float32)
+        return a if a.ndim == 3 else a[None]
+
+    def solve(self, cost, *args, **kwargs):
+        out = real_solve(self, cost, *args, **kwargs)
+        solved.append((host32(cost), out["col_of_row"]))
+        return out
+
+    def batch(C, *args, **kwargs):
+        res = real_batch(C, *args, **kwargs)
+        solved.append((host32(C), res.col_of_row.cpu().numpy()))
+        return res
+
+    def lsa(C, *args, **kwargs):
+        r, c = real_lsa(C, *args, **kwargs)
+        scipy_solved.append((C, float(np.asarray(C)[r, c].sum())))
+        return r, c
+
+    for name, fn in real_fams.items():
+        fams[name] = keep(fn)
+    gen_mod.generate_uniform_costs = keep(real_uniform)
+    pipeline_mod.WarmStartPipeline.solve = solve
+    profiling_mod.lapjv_seeded_batch = batch
+    scipy.optimize.linear_sum_assignment = lsa
+    try:
+        yield made, solved, scipy_solved
+    finally:
+        fams.update(real_fams)
+        gen_mod.generate_uniform_costs = real_uniform
+        pipeline_mod.WarmStartPipeline.solve = real_solve
+        profiling_mod.lapjv_seeded_batch = real_batch
+        scipy.optimize.linear_sum_assignment = real_lsa
+
+
+def _hold_optimal(made, solved, scipy_solved, what):
+    """Each solved assignment's float64 cost against SciPy's optimum of the
+    float64 instance it was made from, to 1e-12 relative (the optimum a CLI's
+    own SciPy solve of that array found, else a SciPy solve here).  Returns
+    the number held, the largest relative gap and the indices in ``made``
+    of the instances held."""
+    import numpy as np
+
+    opts, worst, held = {}, 0.0, set()
+    for k, C in enumerate(made):
+        opts.update({k: opt for D, opt in scipy_solved if D is C})
+    for c32, x in solved:
+        for b in range(c32.shape[0]):
+            k = next((i for i, C in enumerate(made)
+                      if C.shape == c32.shape[1:] and np.array_equal(C.astype(np.float32), c32[b])),
+                     None)
+            if k is None:
+                raise AssertionError(f"{what}: a solved instance is none of the generated ones")
+            C = made[k]
+            if k not in opts:
+                opts[k] = _scipy_opt(C)
+            n = C.shape[0]
+            xb = np.asarray(x[b], np.int64)
+            if not np.array_equal(np.sort(xb), np.arange(n)):
+                raise AssertionError(f"{what}: an assignment is not a permutation")
+            got = float(C[np.arange(n), xb].sum())
+            gap = abs(got - opts[k]) / max(1.0, abs(opts[k]))
+            if not gap <= 1e-12:
+                raise AssertionError(f"{what}: cost {got} against SciPy's {opts[k]} (n = {n})")
+            worst = max(worst, gap)
+            held.add(k)
+    return sum(c.shape[0] for c, _ in solved), worst, held
+
+
+def _hold_two_min_calls(torch, calls, what, chunk_bytes=2**30):
+    """Captured K4 calls ``((C, v), result)`` against the plain version, bit
+    for bit.  The consecutive calls on one (n, m) matrix (a solve's ARR
+    rounds) are held a chunk at a time: their v stacked, one broadcast plain
+    call, which gives each row the bits of its own call.  Returns the
+    largest absolute difference over the finite entries."""
+    from lapgnn_tpu_torch.ops.cuda.twomin import two_min_plain
+
+    err, i = 0.0, 0
+    while i < len(calls):
+        C = calls[i][0][0]
+        most = max(1, chunk_bytes // (C.numel() * C.element_size())) if C.ndim == 2 else 1
+        j = i + 1
+        while j < len(calls) and j - i < most and calls[j][0][0] is C:
+            j += 1
+        group = calls[i:j]
+        V = torch.stack([args[1] for args, _ in group])
+        got = tuple(torch.stack([g[t] for _, g in group]) for t in range(3))
+        want = two_min_plain(C, V) if C.ndim == 2 else two_min_plain(C[None], V)
+        err = max(err, _check_two_min(
+            torch, got, want, f"{what}, calls {i}-{j - 1} of {len(calls)}, "
+                              f"shape {tuple(C.shape)}, {C.dtype}"))
+        i = j
+    return err
+
+
+def _run_cli(main, argv):
+    """``main(argv)`` in process with its standard output kept: (its return
+    value, the JSON lines it printed, the host-clock seconds).  A CLI goes on
+    past a failed measurement and says so on a ``#`` line: any such line
+    that names a failure raises here."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    seconds = time.perf_counter() - t0
+    lines = []
+    for x in buf.getvalue().splitlines():
+        if x.startswith("#") and "fail" in x.lower():
+            raise AssertionError(f"{main.__module__} {' '.join(argv)}: {x}")
+        if x.startswith("{") and x.endswith("}"):  # one-line JSON objects only
+            lines.append(json.loads(x))
+    return ret, lines, seconds
+
+
+def _expect(what, got, want):
+    if got != want:
+        raise AssertionError(f"front_ends: {what} is {got!r}, expected {want!r}")
+
+
+def _experiment_rows(logs):
+    """(solver, family, n) -> median ms and cost of a BenchmarkLogger run."""
+    files = sorted((Path(logs) / "experiments").glob("*.json"))
+    rows = json.loads(files[-1].read_text())["rows"]
+    return [{"solver": r["solver"], "family": r["family"], "n": r["n"],
+             "median_ms": None if r["median_s"] is None else r["median_s"] * 1e3,
+             "cost": r["cost"]} for r in rows]
+
+
+def phase_front_ends(torch, seed):
+    """The solver front ends, the benchmark and profiling CLIs and the
+    regression bench on the card: ``cli.benchmark`` (device mode, n = 2048,
+    uniform and sparse, ``--quick``), ``cli.profile_pipeline`` (device mode,
+    n = 2048), ``cli.benchmark_by_type`` (n = 512), ``cli.comprehensive_benchmark``
+    (n = 512 and 1024, ``--no-plots``), ``cli.large_scale_benchmark`` (device
+    mode, n = 4096), ``cli.main_benchmark --quick`` (host only: its
+    correctness gate, then the host solvers' times), ``bench.regression
+    --device`` (n = 1024), all with ``artifacts/one_gnn_default`` where they
+    take a checkpoint.  Each CLI's count of measured rows is held, a ``#``
+    line that names a failure fails the phase, every instance the pipeline
+    CLIs made must have gone through the pipeline, and every assignment the
+    pipeline returned is held in float64 to SciPy's optimum (1e-12
+    relative).  Then the solver classes:
+    ``TorchSolver`` and ``SeededTorchSolver`` in float32 (K4) at n = 2048
+    on uniform, seeded by row / column minima and by the rank-1 seed, within
+    n * 2^-23 * max|C| of SciPy's optimum; ``verify_solver_correctness`` at
+    1e-10 with all seven classes (the torch ones in float64, K4's float64
+    form) at n = 1024 on uniform and sparse; ``LAPMODSolver`` on sparse at n = 2048 and the route
+    that answered.  The launch counters, zeroed just before, must show K1-K4,
+    and every K1 / K2 / K3 / K4 call of the phase is held against its plain
+    version on its own arguments (K1, K2, K4 bit for bit, K3 within rtol
+    2e-5 / atol 2e-6 with its selection channels bit-equal).  At most 60 s."""
+    import tempfile
+
+    import numpy as np
+
+    import lapgnn_tpu_torch.ops.cuda.features as cuda_features
+    import lapgnn_tpu_torch.ops.dual as dual_mod
+    import lapgnn_tpu_torch.ops.features as features_mod
+    import lapgnn_tpu_torch.solver.seeded as seeded_mod
+    from lapgnn_tpu_torch.bench import regression
+    from lapgnn_tpu_torch.cli import (benchmark, benchmark_by_type, comprehensive_benchmark,
+                                      large_scale_benchmark, main_benchmark, profile_pipeline)
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+    from lapgnn_tpu_torch.solver.api import (LAPMODSolver, LAPSolver, SciPySolver,
+                                             SeededLAPSolver, SeededTorchSolver, TorchSolver,
+                                             WarmStartLAPSolver)
+    from lapgnn_tpu_torch.solver.seed_baselines import seed_rank1_analytic, seed_row_col_minima
+    from lapgnn_tpu_torch.solver.verification import verify_solver_correctness
+
+    ck = str(CHECKPOINT)
+    rng = np.random.default_rng(seed + 909)
+    C_u = FAMILIES["uniform"](FRONT_N, rng)
+    C_sparse = FAMILIES["sparse"](FRONT_N, rng)
+    C_verify = {f: FAMILIES[f](FRONT_VERIFY_N, rng) for f in ("uniform", "sparse")}
+    seeds = {"row_col_minima": seed_row_col_minima(C_u), "rank1_analytic": seed_rank1_analytic(C_u)}
+    verify_seeds = {f: seed_rank1_analytic(C) for f, C in C_verify.items()}
+    opt_u = _scipy_opt(C_u)
+    torch.cuda.synchronize()
+
+    seen = {k: [] for k in ("col_min", "min_trick", "row_features_stats", "two_min")}
+    clis, classes = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_launches()
+        with _wrapped(cuda_features, "col_min", _capture(seen["col_min"], clone=True)), \
+                _wrapped(dual_mod, "min_trick", _capture(seen["min_trick"], clone=True)), \
+                _wrapped(features_mod, "row_features_stats",
+                         _capture(seen["row_features_stats"], clone=True)), \
+                _wrapped(seeded_mod, "two_min", _capture(seen["two_min"])), \
+                _recording_front_ends() as (made, solved, scipy_solved):
+            # each pipeline CLI's count of measured instances is held
+            # beside the '#' failure lines that _run_cli refuses
+            logs = f"{tmp}/benchmark"
+            ret, _, s = _run_cli(benchmark.main, [
+                "--checkpoint", ck, "--mode", "device", "--sizes", str(FRONT_N),
+                "--families", "uniform", "sparse", "--quick", "--logs", logs])
+            _expect("cli.benchmark's measured_instances", ret["measured_instances"], 2)
+            clis["benchmark"] = {"seconds": s, "summary": ret, "rows": _experiment_rows(logs)}
+            ret, _, s = _run_cli(profile_pipeline.main, [
+                "--checkpoint", ck, "--size", str(FRONT_N), "--families", "uniform",
+                "--mode", "device", "--repeats", "3"])
+            _expect("cli.profile_pipeline's families", list(ret), ["uniform"])
+            clis["profile_pipeline"] = {"seconds": s, "stages_ms": ret}
+            logs = f"{tmp}/by_type"
+            ret, _, s = _run_cli(benchmark_by_type.main, [
+                "--checkpoint", ck, "--size", str(FRONT_BY_TYPE_N), "--instances", "1",
+                "--repeats", "1", "--logs", logs])
+            by_type_fams = benchmark_by_type.build_parser().parse_args(
+                ["--checkpoint", ck]).families
+            _expect("cli.benchmark_by_type's families", list(ret["per_family"]), by_type_fams)
+            _expect("cli.benchmark_by_type's timed pipeline solves",
+                    sum(r["solver"] == "warm_pipeline" and r["median_ms"] is not None
+                        for r in _experiment_rows(logs)), len(by_type_fams))
+            clis["benchmark_by_type"] = {"seconds": s, "summary": ret}
+            ret, lines, s = _run_cli(comprehensive_benchmark.main, [
+                "--checkpoint", ck, "--sizes", *map(str, FRONT_COMPREHENSIVE_N),
+                "--instances", "1", "--repeats", "1", "--no-plots", "--out", f"{tmp}/comp"])
+            _expect("cli.comprehensive_benchmark's rows",
+                    [(r["family"], r["n"]) for r in lines[:-1]],
+                    [(f, n) for f in ("uniform", "sparse") for n in FRONT_COMPREHENSIVE_N])
+            clis["comprehensive_benchmark"] = {"seconds": s, "summary": ret, "rows": lines[:-1]}
+            logs = f"{tmp}/large"
+            ret, lines, s = _run_cli(large_scale_benchmark.main, [
+                "--checkpoint", ck, "--sizes", str(FRONT_LARGE_N), "--instances", "1",
+                "--repeats", "1", "--mode", "device", "--logs", logs])
+            _expect("cli.large_scale_benchmark's rows with a pipeline time",
+                    [(r["n"], "pipeline_s" in r) for r in lines], [(FRONT_LARGE_N, True)])
+            clis["large_scale_benchmark"] = {"seconds": s, "rows": lines,
+                                             "logged": _experiment_rows(logs)}
+            n_made_by_pipeline_clis = len(made)
+            ret, lines, s = _run_cli(main_benchmark.main, ["--quick", "--logs", f"{tmp}/main"])
+            _expect("cli.main_benchmark --quick's rows", len(lines[:-1]), 6)
+            clis["main_benchmark"] = {"seconds": s, "summary": ret, "rows": lines[:-1]}
+            ret, _, s = _run_cli(regression.main, [
+                "--sizes", str(FRONT_REGRESSION_N), "--device", "--repeats", "2"])
+            clis["bench.regression"] = {"seconds": s, "cells": ret}
+            made_cli, solved_cli, scipy_cli = list(made), list(solved), list(scipy_solved)
+
+            # the solver classes on the card
+            for name, solver, kw in (
+                    ("torch_float32", TorchSolver(), {}),
+                    *((f"seeded_torch_float32_{k}", SeededTorchSolver(), {"u": u, "v": v})
+                      for k, (u, v) in seeds.items())):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, x, cost = solver.solve(C_u, **kw)
+                ms = (time.perf_counter() - t0) * 1e3
+                if not np.array_equal(np.sort(x), np.arange(FRONT_N)):
+                    raise AssertionError(f"{name}: not a permutation")
+                got = float(C_u[np.arange(FRONT_N), x].sum())
+                bound = FRONT_N * 2.0 ** -23 * float(np.abs(C_u).max())
+                if not abs(got - opt_u) <= bound:
+                    raise AssertionError(f"{name}: cost {got}, SciPy {opt_u}, bound {bound}")
+                classes[name] = {"ms_host_clock": ms, "float64_cost": got,
+                                 "reported_float32_cost": cost, "scipy_cost": opt_u,
+                                 "equals_scipy": got == opt_u, "gap": got - opt_u,
+                                 "bound": bound}
+            gate = [SciPySolver(), LAPSolver(), SeededLAPSolver(),
+                    TorchSolver(dtype=torch.float64), SeededTorchSolver(dtype=torch.float64),
+                    LAPMODSolver(), WarmStartLAPSolver()]
+            for fam, C in C_verify.items():
+                t0 = time.perf_counter()
+                costs = verify_solver_correctness(C, gate, tol=1e-10, u=verify_seeds[fam][0],
+                                                  v=verify_seeds[fam][1])
+                classes[f"verify_{fam}"] = {"n": FRONT_VERIFY_N, "costs": costs,
+                                            "seconds": time.perf_counter() - t0}
+            lapmod = LAPMODSolver()
+            t0 = time.perf_counter()
+            _, x, cost = lapmod.solve(C_sparse)
+            opt_s = _scipy_opt(C_sparse)
+            if not abs(cost - opt_s) <= 1e-12 * max(1.0, abs(opt_s)):
+                raise AssertionError(f"lapmod: cost {cost}, SciPy {opt_s}")
+            classes["lapmod_sparse"] = {"n": FRONT_N, "route": lapmod.last_route,
+                                        "ms_host_clock": (time.perf_counter() - t0) * 1e3,
+                                        "cost": cost, "scipy_cost": opt_s}
+            print(f"front_ends: LAPMODSolver on sparse n = {FRONT_N} answered by the "
+                  f"{lapmod.last_route} route", flush=True)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+    drive_s = time.perf_counter() - t_phase
+    want = ("col_min", "min_trick", "row_features_stats", "two_min")
+    if any(launches[k] < 1 for k in want):
+        raise AssertionError(f"the front ends skipped a kernel: launches {launches}")
+
+    held, worst_gap, held_ids = _hold_optimal(made_cli, solved_cli, scipy_cli, "front_ends CLIs")
+    # every instance the pipeline CLIs made went through the pipeline
+    unsolved = [i for i in range(n_made_by_pipeline_clis) if i not in held_ids and not any(
+        made_cli[k].shape == made_cli[i].shape and np.array_equal(made_cli[k], made_cli[i])
+        for k in held_ids)]
+    if unsolved or not held_ids:
+        raise AssertionError(f"front_ends: {len(unsolved)} of the {n_made_by_pipeline_clis} "
+                             "instances the pipeline CLIs made were never solved by the pipeline")
+
+    # every kernel call of the phase against its plain version
+    errs = {k: 0.0 for k in seen}
+    errs["two_min"] = _hold_two_min_calls(torch, seen["two_min"], "front_ends")
+    for k, calls in seen.items():
+        if k == "two_min":
+            continue
+        for i, (args, got) in enumerate(calls):
+            what = f"front_ends, call {i} of {len(calls)}, shape {tuple(args[0].shape)}"
+            if k in ("col_min", "min_trick"):
+                e, _, _ = _hold_colmin(torch, k, got,
+                                       _colmin_want(torch, args[0], args[1] if k == "min_trick" else None),
+                                       what)
+            else:
+                e = _hold_k3(torch, got, args[0], what, finite=bool(torch.isfinite(args[0]).all()))
+            errs[k] = max(errs[k], e)
+    against_plain = {k: {"calls": len(calls), "shapes": sorted({tuple(a[0].shape) for a, _ in calls}),
+                         "max_abs_err": errs[k]} for k, calls in seen.items()}
+    del seen
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    _emit({"phase": "front_ends", "checkpoint": "artifacts/one_gnn_default", "n": FRONT_N,
+           "launches": launches, "kernels_against_plain": against_plain,
+           "pipeline_solves_held_optimal": held,
+           "pipeline_cli_instances": n_made_by_pipeline_clis, "largest_relative_gap": worst_gap,
+           "clis": clis, "solver_classes": classes,
+           "drive_seconds": drive_s, "phase_seconds": phase_s})
+    if phase_s > FRONT_ENDS_PHASE_LIMIT_S:
+        raise AssertionError(
+            f"the front_ends phase took {phase_s:.1f} s, above {FRONT_ENDS_PHASE_LIMIT_S} s")
+    return {"launches": launches, "max_abs_err": errs}
+
+
 def _time_ms(torch, fn, reps, flush, queued=True, flush_by_read=False):
     """Median CUDA-event time of ``fn`` with L2 flushed before each launch:
     by ``flush.zero_()``, which leaves L2 full of dirty lines that the timed
@@ -2277,6 +2676,16 @@ def phase_times(torch, seed):
         k4["yardsticks"] = _two_min_yardsticks(torch, C, v, reps, flush, no_flush)
         k3["kernel_only_ms_l2_resident"] = _time_ms(
             torch, lambda: stats_kernel(C, cm), reps, no_flush)
+        # K4's float64 form (the float64 solves), its own bound
+        C64, v64 = C.double(), v.double()
+        bound, by = _bound_ms("two_min", 1, n, n, itemsize=8)
+        k4["float64"] = {"ms": _time_ms(torch, lambda: two_min(C64, v64), reps, flush),
+                         "plain_ms": _time_ms(torch, lambda: two_min_plain(C64, v64),
+                                              max(3, reps // 4), flush),
+                         "ms_l2_resident": _time_ms(torch, lambda: two_min(C64, v64), reps,
+                                                    no_flush),
+                         "bound_ms": bound, "bound_by": by}
+        del C64, v64
     n = 4096
     C = _batch(torch, n, seed + 7 * n, fams=("uniform",))
     v = torch.randn((1, n), device="cuda", generator=g) * 0.3
@@ -2363,8 +2772,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
                     help="comma-separated subset of build,compare,times,stream,train,eval,"
-                         "dual_train "
-                         "(no ok line)")
+                         "dual_train,front_ends (no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -2392,7 +2800,8 @@ def main() -> int:
                       "stream": lambda: phase_stream(torch, args.seed),
                       "train": lambda: phase_train(torch, args.seed),
                       "eval": lambda: phase_eval(torch, args.seed),
-                      "dual_train": lambda: phase_dual_train(torch, args.seed)}
+                      "dual_train": lambda: phase_dual_train(torch, args.seed),
+                      "front_ends": lambda: phase_front_ends(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
@@ -2418,6 +2827,7 @@ def main() -> int:
         train = phase_train(torch, args.seed, train_data)
         evaluated = phase_eval(torch, args.seed, eval_records)
         dual = phase_dual_train(torch, args.seed, train_data)
+        front = phase_front_ends(torch, args.seed)
         times = phase_times(torch, args.seed)
     except Exception:
         traceback.print_exc()
@@ -2437,6 +2847,7 @@ def main() -> int:
                                                dual["max_abs_err"]),
                             "launches_eval": evaluated["launches"][kname],
                             "launches_dual_train": dual["launches"][kname],
+                            "launches_front_ends": front["launches"][kname],
                             **{f"at_{k}_dual_train": v for k, v in dual["greedy"].items()},
                             "card": card})
             continue
@@ -2446,7 +2857,9 @@ def main() -> int:
             "launches": launches[kname],
             "launches_eval": evaluated["launches"][kname],
             "launches_dual_train": dual["launches"][kname],
-            "max_abs_err": max(errs[kname], evaluated["max_abs_err"].get(kname, 0.0)),
+            "launches_front_ends": front["launches"][kname],
+            "max_abs_err": max(errs[kname], evaluated["max_abs_err"].get(kname, 0.0),
+                               front["max_abs_err"][kname]),
             "n": N_E2E,
             **t[N_E2E],
             "at_n_8192": t[8192],

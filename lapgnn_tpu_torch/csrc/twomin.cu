@@ -36,7 +36,10 @@
 //     propagates NaN), and +-inf order as usual; equal values at two columns
 //     give min2 == min1, as the masked form does;
 //   * the argmin is written as int32 directly (no float round trip, so the
-//     TPU kernel's n < 2^24 limit does not apply).
+//     TPU kernel's n < 2^24 limit does not apply);
+//   * float64 (lapgnn_two_min_f64, the float64 solves of the device solver)
+//     takes the float compare state over doubles with 8-byte loads; the
+//     Pallas kernel has no float64 form.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -138,23 +141,26 @@ struct KeyState {
 };
 
 // Lexicographic (value, index) order with NaN smallest (torch.argmin).
-__device__ __forceinline__ bool lex_less(float a, int ia, float b, int ib) {
+template <typename T>
+__device__ __forceinline__ bool lex_less(T a, int ia, T b, int ib) {
   const bool an = isnan(a), bn = isnan(b);
   if (an || bn) return an && (!bn || ia < ib);
   return a < b || (a == b && ia < ib);
 }
 
 // Minimum that propagates NaN (amin).
-__device__ __forceinline__ float nan_min(float a, float b) {
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
   return (isnan(a) || a < b) ? a : b;
 }
 
-// The same two minima kept as floats: (m1, i1) the first argmin, m2 the
-// minimum of the rest.
+// The same two minima kept as floats (float or double): (m1, i1) the first
+// argmin, m2 the minimum of the rest.
+template <typename T>
 struct FloatState {
-  float m1;
+  T m1;
   int i1;
-  float m2;
+  T m2;
 
   __device__ __forceinline__ void init() {
     m1 = m2 = INFINITY;
@@ -162,8 +168,8 @@ struct FloatState {
   }
 
   // Column j comes after every column seen so far by this lane.
-  __device__ __forceinline__ void push(float c, float w, int j) {
-    const float x = c - w;
+  __device__ __forceinline__ void push(T c, T w, int j) {
+    const T x = c - w;
     if (lex_less(x, j, m1, i1)) {
       m2 = nan_min(m1, m2);
       m1 = x;
@@ -175,7 +181,7 @@ struct FloatState {
 
   // The winner keeps its m1 and i1; the new m2 is the minimum of the
   // loser's m1 and both m2.
-  __device__ __forceinline__ void merge(float om1, int oi1, float om2) {
+  __device__ __forceinline__ void merge(T om1, int oi1, T om2) {
     if (lex_less(om1, oi1, m1, i1)) {
       m2 = nan_min(m1, nan_min(m2, om2));
       m1 = om1;
@@ -188,16 +194,15 @@ struct FloatState {
   __device__ __forceinline__ void merge_lanes() {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float om1 = __shfl_xor_sync(kAllLanes, m1, off);
+      const T om1 = __shfl_xor_sync(kAllLanes, m1, off);
       const int oi1 = __shfl_xor_sync(kAllLanes, i1, off);
-      const float om2 = __shfl_xor_sync(kAllLanes, m2, off);
+      const T om2 = __shfl_xor_sync(kAllLanes, m2, off);
       merge(om1, oi1, om2);
     }
   }
 
-  __device__ __forceinline__ void write(const float*, const float*, float* min1,
-                                        float* min2, int32_t* argmin,
-                                        long long o) const {
+  __device__ __forceinline__ void write(const T*, const T*, T* min1, T* min2,
+                                        int32_t* argmin, long long o) const {
     min1[o] = m1;
     min2[o] = m2;
     argmin[o] = i1;
@@ -216,22 +221,24 @@ __device__ __forceinline__ void push4(State& s, const float4& c, const float4& w
 }
 
 // One warp per row.  kUnroll loads of C and of v are requested before the
-// first compare; a lane's columns still come in increasing order.
-template <typename State, bool kVec4, int kUnroll>
+// first compare; a lane's columns still come in increasing order.  16-byte
+// loads (kVec4) are float only.
+template <typename T, typename State, bool kVec4, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
-    twomin_kernel(const float* __restrict__ C, const float* __restrict__ v,
-                  float* __restrict__ min1, float* __restrict__ min2,
+    twomin_kernel(const T* __restrict__ C, const T* __restrict__ v,
+                  T* __restrict__ min1, T* __restrict__ min2,
                   int32_t* __restrict__ argmin, int n, int m) {
+  static_assert(!kVec4 || sizeof(T) == 4, "16-byte loads are float only");
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int b = blockIdx.y;
   if (row >= n) return;
-  const float* crow = C + ((long long)b * n + row) * m;
-  const float* vb = v + (long long)b * m;
+  const T* crow = C + ((long long)b * n + row) * m;
+  const T* vb = v + (long long)b * m;
 
   State s;
   s.init();
-  if (kVec4) {
+  if constexpr (kVec4) {
     const float4* c4 = reinterpret_cast<const float4*>(crow);
     const float4* v4 = reinterpret_cast<const float4*>(vb);
     const int m4 = m >> 2;
@@ -250,7 +257,7 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     int j = lane;
     for (; j + 32 * (kUnroll - 1) < m; j += 32 * kUnroll) {
-      float c[kUnroll], w[kUnroll];
+      T c[kUnroll], w[kUnroll];
 #pragma unroll
       for (int i = 0; i < kUnroll; ++i) {
         c[i] = __ldg(crow + j + 32 * i);
@@ -273,16 +280,31 @@ cudaError_t launch(const float* C, const float* v, float* min1, float* min2,
   const dim3 grid((n + kWarps - 1) / kWarps, B);
   if (unroll == 4) {
     if (vec) {
-      twomin_kernel<State, true, 4><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
+      twomin_kernel<float, State, true, 4><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
     } else {
-      twomin_kernel<State, false, 4><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
+      twomin_kernel<float, State, false, 4><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
     }
   } else if (unroll == 1) {
     if (vec) {
-      twomin_kernel<State, true, 1><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
+      twomin_kernel<float, State, true, 1><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
     } else {
-      twomin_kernel<State, false, 1><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
+      twomin_kernel<float, State, false, 1><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
     }
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f64(const double* C, const double* v, double* min1,
+                       double* min2, int32_t* argmin, int B, int n, int m,
+                       int unroll, cudaStream_t s) {
+  using State = FloatState<double>;
+  const dim3 grid((n + kWarps - 1) / kWarps, B);
+  if (unroll == 4) {
+    twomin_kernel<double, State, false, 4><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
+  } else if (unroll == 1) {
+    twomin_kernel<double, State, false, 1><<<grid, kThreads, 0, s>>>(C, v, min1, min2, argmin, n, m);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -306,8 +328,18 @@ int lapgnn_two_min(const float* C, const float* v, float* min1, float* min2,
               reinterpret_cast<uintptr_t>(v) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      float_state ? launch<FloatState>(C, v, min1, min2, argmin, B, n, m, vec, unroll, s)
+      float_state ? launch<FloatState<float>>(C, v, min1, min2, argmin, B, n, m, vec, unroll, s)
                   : launch<KeyState>(C, v, min1, min2, argmin, B, n, m, vec, unroll, s));
+}
+
+// The same for float64: C (B, n, m), v (B, m), min1 and min2 (B, n) f64,
+// argmin (B, n) int32; the float compare state with 8-byte loads, `unroll`
+// 1 or 4.  Returns a cudaError_t.
+int lapgnn_two_min_f64(const double* C, const double* v, double* min1,
+                       double* min2, int32_t* argmin, int B, int n, int m,
+                       int unroll, void* stream) {
+  return static_cast<int>(launch_f64(C, v, min1, min2, argmin, B, n, m, unroll,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -64,6 +64,8 @@ def _bind_twomin(lib: ctypes.CDLL) -> None:
     lib.lapgnn_two_min.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP,
     ]
+    lib.lapgnn_two_min_f64.restype = _I
+    lib.lapgnn_two_min_f64.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
 
 
 def _bind_greedy(lib: ctypes.CDLL) -> None:

@@ -20,9 +20,11 @@ state, faster when the kernel streams from device memory.
 The plain version is the three-pass form the JAX ``jacobi_arr`` computes
 (seeded.py:199-202): argmin, a gather at the argmin, and the minimum with
 that column masked to +inf.  The kernel equals it bit for bit, the argmin's
-first-index and NaN rules included.  A CUDA tensor launches the kernel (or
-raises); only a CPU tensor takes the plain version.  The wrapper counts its
-kernel launches in ``.launches``.
+first-index and NaN rules included.  float64 (the float64 solves of the
+device solver) takes the float compare state over doubles with 8-byte loads,
+a form the Pallas kernel, float32 only, does not have.  A CUDA tensor
+launches the kernel (or raises); only a CPU tensor takes the plain version.
+The wrapper counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -74,27 +76,33 @@ def two_min_geometry(
     batch: int = 1,
     state: str | None = None,
     unroll: int | None = None,
+    itemsize: int = 4,
 ) -> TwoMinGeometry:
     """The launch an (n, m) matrix takes.  ``aligned``: the bases of C and v
-    are 16-byte aligned (16-byte loads also need m % 4 == 0).  A batch that
-    fits in L2 takes the integer-key state, the faster of the two there; a
-    larger one streams from device memory, where the float state is faster,
-    with four loads ahead up to four times L2 (n = 4096) and one beyond
-    (n = 8192), as measured on an H100.  ``state`` and ``unroll`` force a
-    variant, to time one beside another."""
+    are 16-byte aligned (16-byte loads also need m % 4 == 0).  A float32
+    batch that fits in L2 takes the integer-key state, the faster of the two
+    there; a larger one streams from device memory, where the float state is
+    faster, with four loads ahead up to four times L2 (n = 4096) and one
+    beyond (n = 8192), as measured on an H100.  float64 (``itemsize`` 8)
+    takes the float state with 8-byte loads.  ``state`` and ``unroll`` force
+    a variant, to time one beside another."""
     if n < 1 or m < 1:
         raise ValueError(f"two_min: empty matrix ({n}, {m})")
-    nbytes = 4 * batch * n * m
+    if itemsize not in (4, 8):
+        raise ValueError(f"two_min: itemsize {itemsize}")
+    nbytes = itemsize * batch * n * m
     if state is None:
-        state = "keys" if nbytes <= L2_BYTES else "floats"
+        state = "keys" if itemsize == 4 and nbytes <= L2_BYTES else "floats"
     if state not in ("keys", "floats"):
         raise ValueError(f"two_min: unknown state {state!r}")
+    if itemsize == 8 and state != "floats":
+        raise ValueError("two_min: float64 takes the float state only")
     if unroll is None:
         unroll = 4 if nbytes <= 4 * L2_BYTES else 1
     if unroll not in (1, 4):
         raise ValueError(f"two_min: unroll {unroll}")
     return TwoMinGeometry(
-        vector=bool(aligned) and m % 4 == 0, unroll=unroll, state=state,
+        vector=itemsize == 4 and bool(aligned) and m % 4 == 0, unroll=unroll, state=state,
         warps_per_row=1, rows_per_block=WARPS_PER_BLOCK, threads=THREADS,
         blocks=-(-n // WARPS_PER_BLOCK), smem_bytes=0,
     )
@@ -141,8 +149,9 @@ def two_min_by_keys(
 
 
 def _check(C: torch.Tensor, v: torch.Tensor) -> None:
-    if C.dtype != torch.float32 or v.dtype != torch.float32:
-        raise TypeError(f"two_min: C and v must be float32, got {C.dtype}, {v.dtype}")
+    if C.dtype not in (torch.float32, torch.float64) or v.dtype != C.dtype:
+        raise TypeError(
+            f"two_min: C and v must both be float32 or both float64, got {C.dtype}, {v.dtype}")
     if v.device != C.device:
         raise ValueError(f"two_min: v is on {v.device}, C on {C.device}")
     if C.ndim not in (2, 3) or v.ndim != C.ndim - 1:
@@ -175,17 +184,23 @@ def two_min_kernel(
         raise ValueError(f"two_min: batch {B} exceeds the kernel's grid limit 65535")
     g = two_min_geometry(
         n, m, aligned=Cb.data_ptr() % 16 == 0 and vb.data_ptr() % 16 == 0,
-        batch=B, **force,
+        batch=B, itemsize=C.element_size(), **force,
     )
     lib = KERNEL_LIBS["twomin"].load()
-    min1 = torch.empty((B, n), dtype=torch.float32, device=C.device)
-    min2 = torch.empty((B, n), dtype=torch.float32, device=C.device)
+    min1 = torch.empty((B, n), dtype=C.dtype, device=C.device)
+    min2 = torch.empty((B, n), dtype=C.dtype, device=C.device)
     arg = torch.empty((B, n), dtype=torch.int32, device=C.device)
     with torch.cuda.device(C.device):
-        rc = lib.lapgnn_two_min(
-            ptr(Cb), ptr(vb), ptr(min1), ptr(min2), ptr(arg), B, n, m,
-            int(g.vector), g.unroll, int(g.state == "floats"), stream_ptr(C.device),
-        )
+        if C.dtype == torch.float64:
+            rc = lib.lapgnn_two_min_f64(
+                ptr(Cb), ptr(vb), ptr(min1), ptr(min2), ptr(arg), B, n, m, g.unroll,
+                stream_ptr(C.device),
+            )
+        else:
+            rc = lib.lapgnn_two_min(
+                ptr(Cb), ptr(vb), ptr(min1), ptr(min2), ptr(arg), B, n, m,
+                int(g.vector), g.unroll, int(g.state == "floats"), stream_ptr(C.device),
+            )
     check(rc, "two_min kernel")
     two_min.launches += 1
     if C.ndim == 2:
@@ -197,8 +212,10 @@ def two_min(
     C: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4: (min1, min2, argmin1) of the rows of C - v, for (n, m), (m,) or
-    (B, n, m), (B, m) float32; argmin1 is int32.  Bit-equal to
-    ``two_min_plain``."""
+    (B, n, m), (B, m) float32 or float64; argmin1 is int32.  Bit-equal to
+    ``two_min_plain``.  A CPU tensor takes the plain version; any other
+    launches the kernel, which raises for a dtype other than float32 and
+    float64."""
     if C.device.type == "cpu":
         return two_min_plain(C, v)
     return two_min_kernel(C, v)

@@ -1,7 +1,8 @@
 """ctypes bindings for the port's copy of the native lapx solver (``lapx.cpp``).
 
 The exact float64 Jonker–Volgenant solver that the hybrid path runs on the
-host, and the dual repair of the device path's certificate.  ``lapx.cpp`` is the port's own copy of
+host, the dual repair of the device path's certificate, and the sparse CSR
+(LAPMOD) solver of ``solver.api.LAPMODSolver`` and ``solver.lap_compat.lapmod``.  ``lapx.cpp`` is the port's own copy of
 ``lapgnn_tpu/solver/native/lapx.cpp``; it is built with ``g++ -O3
 -march=native`` at first use into the repository's ``build/native/``, so it
 is never shared with the JAX package's cache.
@@ -19,7 +20,15 @@ import numpy as np
 
 from ..._build import BuildError, SharedLibrary
 
-__all__ = ["lapjv_native", "lapjv_seeded_native", "repair_duals_native", "NativeSolveError"]
+__all__ = [
+    "lapjv_native",
+    "lapjv_seeded_native",
+    "lapmod_native",
+    "repair_duals_native",
+    "sparse_from_dense",
+    "native_available",
+    "NativeSolveError",
+]
 
 
 class NativeSolveError(RuntimeError):
@@ -51,6 +60,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, f64p, i32p, f64p, ctypes.c_longlong,
         ctypes.POINTER(ctypes.c_double),
     ]
+    lib.lapx_sparse.restype = ctypes.c_int
+    lib.lapx_sparse.argtypes = [
+        ctypes.c_int, i32p, i32p, f64p, i32p, i32p, f64p, f64p, ctypes.c_int,
+    ]
 
 
 LIBRARY = SharedLibrary(Path(__file__).with_name("lapx.cpp"), "native", _gxx_command, _bind)
@@ -61,6 +74,15 @@ def _lib() -> ctypes.CDLL:
         return LIBRARY.load()
     except (BuildError, OSError) as exc:
         raise NativeSolveError(f"native build failed: {exc}") from exc
+
+
+def native_available() -> bool:
+    """Whether the native library builds and loads here."""
+    try:
+        _lib()
+        return True
+    except NativeSolveError:
+        return False
 
 
 def _square(C: np.ndarray, what: str) -> np.ndarray:
@@ -155,3 +177,69 @@ def repair_duals_native(
     if rc != 0:
         raise NativeSolveError(f"lapx_repair_duals failed with code {rc}")
     return v, float(min_red.value)
+
+
+def lapmod_native(
+    n: int,
+    row_ptr: np.ndarray,
+    col_idx: np.ndarray,
+    values: np.ndarray,
+    return_duals: bool = False,
+    fp_version: int = 3,
+):
+    """Sparse CSR solve (the LAPMOD capability).  ``row_ptr`` has n + 1
+    entries; ``fp_version`` picks the find-path strategy: 1 dense scans, 2 a
+    frontier list, 3 either by the 25% density threshold.  Raises
+    ``NativeSolveError`` (code -3) when the allowed edges admit no perfect
+    matching.  Returns (col_of_row, row_of_col, cost[, u, v])."""
+    row_ptr = np.ascontiguousarray(row_ptr, np.int32)
+    col_idx = np.ascontiguousarray(col_idx, np.int32)
+    values = np.ascontiguousarray(values, np.float64)
+    if row_ptr.shape[0] != n + 1:
+        raise ValueError("row_ptr must have n+1 entries")
+    # The whole CSR is checked before the C++ sees a pointer: an index outside
+    # [0, n) or a row_ptr past the buffers would be an out-of-bounds heap
+    # write (v[j], y[j]), not a Python exception.
+    nnz = int(row_ptr[-1])
+    if np.any(np.diff(row_ptr) < 0) or int(row_ptr[0]) != 0:
+        raise ValueError("row_ptr must be nondecreasing and start at 0")
+    if col_idx.shape[0] < nnz or values.shape[0] < nnz:
+        raise ValueError(
+            f"col_idx/values need at least row_ptr[n]={nnz} entries "
+            f"(got {col_idx.shape[0]}/{values.shape[0]})"
+        )
+    if nnz and (col_idx[:nnz].min() < 0 or col_idx[:nnz].max() >= n):
+        raise ValueError("col_idx entries must be in [0, n)")
+    lib = _lib()
+    x = np.empty(n, np.int32)
+    y = np.empty(n, np.int32)
+    u = np.empty(n, np.float64)
+    v = np.empty(n, np.float64)
+    rc = lib.lapx_sparse(n, row_ptr, col_idx, values, x, y, u, v, int(fp_version))
+    if rc != 0:
+        raise NativeSolveError(
+            f"lapx_sparse failed with code {rc}" + (" (infeasible)" if rc == -3 else "")
+        )
+    # the cost from the CSR entries of the matched edges
+    cost = 0.0
+    for i in range(n):
+        seg = slice(row_ptr[i], row_ptr[i + 1])
+        k = np.nonzero(col_idx[seg] == x[i])[0]
+        cost += float(values[seg][k[0]])
+    if return_duals:
+        return x, y, cost, u, v
+    return x, y, cost
+
+
+def sparse_from_dense(C: np.ndarray, forbidden_threshold: float = 1e6):
+    """Dense -> CSR ``(row_ptr, col_idx, values)``, dropping entries at or
+    above ``forbidden_threshold`` and non-finite ones."""
+    C = np.asarray(C, np.float64)
+    n = C.shape[0]
+    keep = np.isfinite(C) & (C < forbidden_threshold)
+    counts = keep.sum(axis=1).astype(np.int32)
+    row_ptr = np.zeros(n + 1, np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    col_idx = np.nonzero(keep)[1].astype(np.int32)
+    values = C[keep].astype(np.float64)
+    return row_ptr, col_idx, values

@@ -1,15 +1,17 @@
 // lapx: dense Jonker-Volgenant assignment solver with warm-start support.
 //
-// The port's copy of the dense and warm-started solvers and the dual repair
-// of lapgnn_tpu/solver/native/lapx.cpp: the exact float64 host solve of the
-// hybrid path and the certify-and-polish pass of the device path, written
-// around a small DualState struct and a plain-Dijkstra augmenting search.
+// The port's copy of the dense, warm-started and sparse solvers and the dual
+// repair of lapgnn_tpu/solver/native/lapx.cpp: the exact float64 host solve
+// of the hybrid path, the certify-and-polish pass of the device path and the
+// LAPMOD front end, written around a small DualState struct and a
+// plain-Dijkstra augmenting search.
 //
 // Exposed via extern "C" for ctypes:
 //   lapx_dense(n, C, x, y, u, v)                     - cold optimal solve
 //   lapx_seeded(n, C, u_seed, v_seed, eps, x, y, fb) - warm-started solve
 //   lapx_repair_duals(n, C, x, v, max_scans, min_red) - dual repair of a
 //                                                       candidate assignment
+//   lapx_sparse(n, row_ptr, col_idx, val, x, y, u, v, fp) - CSR (LAPMOD) solve
 //
 // The solvers return 0 on success and fill x (column of each row), y (row of
 // each column) and the final dual potentials. Costs are row-major double.
@@ -475,6 +477,315 @@ int lapx_repair_duals(int n, const double* C, const int32_t* x, double* v,
     }
   }
   *min_red_out = has_nan ? std::numeric_limits<double>::quiet_NaN() : min_red;
+  return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Sparse (CSR) solver: the port's copy of lapx_sparse of
+// lapgnn_tpu/solver/native/lapx.cpp, the LAPMOD capability. Costs are given
+// row-major CSR; absent entries are forbidden edges. Returns -3 if no perfect
+// matching on the allowed edges exists.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct SparseProblem {
+  int n;
+  const int32_t* row_ptr;  // n+1
+  const int32_t* col_idx;  // nnz
+  const double* val;       // nnz
+};
+
+// Sparse column reduction: every column's potential is its cheapest incident
+// edge; rows uniquely claimed keep their edge.
+void sparse_column_reduce(const SparseProblem& P, vector<int>& x, vector<int>& y,
+                          vector<double>& v) {
+  const int n = P.n;
+  vector<int> best_row(n, -1);
+  for (int j = 0; j < n; ++j) v[j] = INF;
+  for (int i = 0; i < n; ++i) {
+    for (int32_t k = P.row_ptr[i]; k < P.row_ptr[i + 1]; ++k) {
+      const int j = P.col_idx[k];
+      if (P.val[k] < v[j]) {
+        v[j] = P.val[k];
+        best_row[j] = i;
+      }
+    }
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    const int i = best_row[j];
+    if (i >= 0 && x[i] < 0) {
+      x[i] = j;
+      y[j] = i;
+    }
+  }
+  // Columns no row can reach keep v = 0 so they do not poison the duals.
+  for (int j = 0; j < n; ++j)
+    if (v[j] == INF) v[j] = 0.0;
+}
+
+// Sparse augmenting row reduction (a worklist design).  Each free row takes
+// its cheapest column outright, lowering that column's potential by the gap
+// to its second-cheapest so the kicked owner re-enters the worklist with a
+// usable alternative.  The total number of
+// takeovers is bounded (4n) so degenerate cycles (the classic ARR
+// infinite-loop bug class) simply hand the leftovers to the exact
+// shortest-path phase instead of hanging.
+void sparse_arr(const SparseProblem& P, vector<int>& x, vector<int>& y,
+                vector<double>& v) {
+  const int n = P.n;
+  vector<int> work;
+  work.reserve(n);
+  for (int i = 0; i < n; ++i)
+    if (x[i] < 0) work.push_back(i);
+
+  int budget = 4 * n;
+  while (!work.empty() && budget-- > 0) {
+    const int i = work.back();
+    work.pop_back();
+    double min1 = INF, min2 = INF;
+    int j1 = -1;
+    for (int32_t k = P.row_ptr[i]; k < P.row_ptr[i + 1]; ++k) {
+      const int j = P.col_idx[k];
+      const double r = P.val[k] - v[j];
+      if (r < min1) {
+        min2 = min1;
+        min1 = r;
+        j1 = j;
+      } else if (r < min2) {
+        min2 = r;
+      }
+    }
+    if (j1 < 0) continue;  // row has no edges; path phase will report -3
+    if (min2 < INF && min2 > min1) v[j1] -= (min2 - min1);
+    const int prev = y[j1];
+    if (prev >= 0) {
+      // Only evict when strictly profitable for this row (min1 < min2);
+      // otherwise leave the row free for the exact phase.
+      if (min2 <= min1) continue;
+      x[prev] = -1;
+      work.push_back(prev);
+    }
+    x[i] = j1;
+    y[j1] = i;
+  }
+}
+
+// Find-path strategy 1: dense scans — the argmin pass touches every column.
+// Wins when rows are dense (most columns get a finite distance anyway).
+int sparse_path_scan(const SparseProblem& P, int free_row, vector<int>& x,
+                     vector<int>& y, vector<double>& v, vector<double>& d,
+                     vector<int>& pred, vector<char>& settled) {
+  const int n = P.n;
+  std::fill(d.begin(), d.end(), INF);
+  std::fill(pred.begin(), pred.end(), free_row);
+  std::fill(settled.begin(), settled.end(), 0);
+
+  for (int32_t k = P.row_ptr[free_row]; k < P.row_ptr[free_row + 1]; ++k) {
+    const int j = P.col_idx[k];
+    d[j] = P.val[k] - v[j];
+  }
+
+  int sink = -1;
+  double sink_dist = 0.0;
+  for (int iter = 0; iter <= n; ++iter) {
+    int jmin = -1;
+    double dmin = INF;
+    for (int j = 0; j < n; ++j) {
+      if (!settled[j] && d[j] < dmin) {
+        dmin = d[j];
+        jmin = j;
+      }
+    }
+    if (jmin < 0) return -3;  // no reachable free column: infeasible
+
+    const int owner = y[jmin];
+    if (owner < 0) {
+      sink = jmin;
+      sink_dist = dmin;
+      break;
+    }
+    settled[jmin] = 1;
+    // Slack of the owner at its matched column jmin.
+    double owner_match_slack = INF;
+    for (int32_t k = P.row_ptr[owner]; k < P.row_ptr[owner + 1]; ++k) {
+      if (P.col_idx[k] == jmin) {
+        owner_match_slack = P.val[k] - v[jmin];
+        break;
+      }
+    }
+    const double base = dmin - owner_match_slack;
+    for (int32_t k = P.row_ptr[owner]; k < P.row_ptr[owner + 1]; ++k) {
+      const int j = P.col_idx[k];
+      if (settled[j]) continue;
+      const double cand = base + (P.val[k] - v[j]);
+      if (cand < d[j]) {
+        d[j] = cand;
+        pred[j] = owner;
+      }
+    }
+  }
+  if (sink < 0) return -3;
+
+  for (int j = 0; j < n; ++j)
+    if (settled[j]) v[j] += d[j] - sink_dist;
+
+  int j = sink;
+  for (int guard = 0; guard <= n; ++guard) {
+    const int i = pred[j];
+    y[j] = i;
+    std::swap(x[i], j);
+    if (i == free_row) return 0;
+  }
+  return -1;
+}
+
+// Find-path strategy 2: frontier list — only columns that have received a
+// finite tentative distance are ever scanned, so per-pop cost tracks the
+// reachable set, not n.  Wins on very sparse rows; a lazily-deleted flat
+// frontier.
+int sparse_path_frontier(const SparseProblem& P, int free_row, vector<int>& x,
+                         vector<int>& y, vector<double>& v, vector<double>& d,
+                         vector<int>& pred, vector<char>& settled,
+                         vector<int>& frontier, vector<char>& in_frontier) {
+  const int n = P.n;
+  std::fill(d.begin(), d.end(), INF);
+  std::fill(pred.begin(), pred.end(), free_row);
+  std::fill(settled.begin(), settled.end(), 0);
+  std::fill(in_frontier.begin(), in_frontier.end(), 0);
+  frontier.clear();
+
+  for (int32_t k = P.row_ptr[free_row]; k < P.row_ptr[free_row + 1]; ++k) {
+    const int j = P.col_idx[k];
+    d[j] = P.val[k] - v[j];
+    if (!in_frontier[j]) {
+      in_frontier[j] = 1;
+      frontier.push_back(j);
+    }
+  }
+
+  int sink = -1;
+  double sink_dist = 0.0;
+  for (int iter = 0; iter <= n; ++iter) {
+    int jmin = -1;
+    double dmin = INF;
+    size_t w = 0;  // compact out settled entries while scanning
+    for (size_t r = 0; r < frontier.size(); ++r) {
+      const int j = frontier[r];
+      if (settled[j]) continue;
+      frontier[w++] = j;
+      if (d[j] < dmin) {
+        dmin = d[j];
+        jmin = j;
+      }
+    }
+    frontier.resize(w);
+    if (jmin < 0) return -3;
+
+    const int owner = y[jmin];
+    if (owner < 0) {
+      sink = jmin;
+      sink_dist = dmin;
+      break;
+    }
+    settled[jmin] = 1;
+    double owner_match_slack = INF;
+    for (int32_t k = P.row_ptr[owner]; k < P.row_ptr[owner + 1]; ++k) {
+      if (P.col_idx[k] == jmin) {
+        owner_match_slack = P.val[k] - v[jmin];
+        break;
+      }
+    }
+    const double base = dmin - owner_match_slack;
+    for (int32_t k = P.row_ptr[owner]; k < P.row_ptr[owner + 1]; ++k) {
+      const int j = P.col_idx[k];
+      if (settled[j]) continue;
+      const double cand = base + (P.val[k] - v[j]);
+      if (cand < d[j]) {
+        d[j] = cand;
+        pred[j] = owner;
+        if (!in_frontier[j]) {
+          in_frontier[j] = 1;
+          frontier.push_back(j);
+        }
+      }
+    }
+  }
+  if (sink < 0) return -3;
+
+  // Settled columns all live in (or passed through) the frontier: the dual
+  // update only needs to touch reachable columns.
+  for (int j = 0; j < n; ++j)
+    if (settled[j]) v[j] += d[j] - sink_dist;
+
+  int j = sink;
+  for (int guard = 0; guard <= n; ++guard) {
+    const int i = pred[j];
+    y[j] = i;
+    std::swap(x[i], j);
+    if (i == free_row) return 0;
+  }
+  return -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// fp_version: 1 = dense scans, 2 = frontier list, 3 = dynamic (pick by the
+// 25% matrix-density threshold).
+int lapx_sparse(int n, const int32_t* row_ptr, const int32_t* col_idx,
+                const double* val, int32_t* x_out, int32_t* y_out,
+                double* u_out, double* v_out, int fp_version) {
+  if (n <= 0 || !row_ptr || !col_idx || !val || !x_out || !y_out) return -2;
+  SparseProblem P{n, row_ptr, col_idx, val};
+  vector<int> x(n, -1), y(n, -1);
+  vector<double> v(n, 0.0);
+
+  sparse_column_reduce(P, x, y, v);
+  sparse_arr(P, x, y, v);
+
+  int fp = fp_version;
+  if (fp != 1 && fp != 2) {
+    const double density =
+        static_cast<double>(row_ptr[n]) / (static_cast<double>(n) * n);
+    fp = density > 0.25 ? 1 : 2;
+  }
+
+  vector<double> d(n);
+  vector<int> pred(n);
+  vector<char> settled(n);
+  vector<int> frontier;
+  vector<char> in_frontier(n);
+  frontier.reserve(n);
+  for (int i = 0; i < n; ++i) {
+    if (x[i] >= 0) continue;
+    const int rc =
+        fp == 1 ? sparse_path_scan(P, i, x, y, v, d, pred, settled)
+                : sparse_path_frontier(P, i, x, y, v, d, pred, settled,
+                                       frontier, in_frontier);
+    if (rc != 0) return rc;
+  }
+
+  for (int i = 0; i < n; ++i) {
+    x_out[i] = x[i];
+    if (u_out) {
+      double u = 0.0;
+      for (int32_t k = row_ptr[i]; k < row_ptr[i + 1]; ++k) {
+        if (col_idx[k] == x[i]) {
+          u = val[k] - v[col_idx[k]];
+          break;
+        }
+      }
+      u_out[i] = u;
+    }
+  }
+  for (int j = 0; j < n; ++j) {
+    y_out[j] = y[j];
+    if (v_out) v_out[j] = v[j];
+  }
   return 0;
 }
 

@@ -43,6 +43,7 @@ from lapgnn_tpu_torch.ops.cuda.twomin import (
     order_key,
     two_min_by_keys,
     two_min_geometry,
+    two_min_kernel,
     two_min_plain,
 )
 
@@ -64,7 +65,7 @@ def cuda():
 
 
 def _bits(t):
-    return t.contiguous().view(torch.int32)
+    return t.contiguous().view(torch.int64 if t.dtype == torch.float64 else torch.int32)
 
 
 # ---------------------------------------------------------------- K3 geometry
@@ -249,6 +250,20 @@ def test_two_min_geometry_every_m_gets_a_launch():
             g = two_min_geometry(64, m, aligned)
             assert not g.vector or (aligned and m % 4 == 0)
             assert g.unroll in (1, 4) and g.state in ("keys", "floats")
+
+
+def test_two_min_geometry_float64():
+    """float64 takes the float state with 8-byte loads, its unroll by its
+    own bytes; the key state cannot be forced on it."""
+    g = two_min_geometry(2048, 2048, True, itemsize=8)
+    assert (g.state, g.vector, g.unroll) == ("floats", False, 4)
+    assert two_min_geometry(8192, 8192, True, itemsize=8).unroll == 1  # 512 MiB
+    assert two_min_geometry(4096, 4096, True, itemsize=8).unroll == 4  # 128 MiB
+    assert two_min_geometry(8, 8, True, itemsize=8, state="floats").state == "floats"
+    with pytest.raises(ValueError, match="float64"):
+        two_min_geometry(8, 8, True, itemsize=8, state="keys")
+    with pytest.raises(ValueError):
+        two_min_geometry(8, 8, True, itemsize=2)
 
 
 def test_two_min_geometry_by_size_and_forced():
@@ -617,3 +632,28 @@ def test_k3_k4_take_an_unaligned_view_on_card(cuda):
         row_features_stats(Cu), row_features_stats_plain(Cu, col_min_plain(Cu)),
         rtol=K3_RTOL, atol=K3_ATOL)
     _assert_two_min_equal(two_min(Cu, vu), two_min_plain(Cu, vu))
+
+
+@pytest.mark.cuda
+def test_two_min_float64_launches_the_kernel_on_card(cuda):
+    """The router's dtype rule on the card: float64 and float32 each launch
+    the kernel and equal the plain version bit for bit (NaN and inf rows,
+    both unrolls of the float64 form included); any other dtype reaches the
+    kernel, which raises."""
+    rng = np.random.default_rng(1)
+    C = torch.from_numpy(rng.random((2, 300, 300))).to(cuda)
+    C[0, 3, 7] = float("nan")
+    C[1, 5] = float("inf")
+    C[1, 6, :4] = -float("inf")
+    v = torch.from_numpy(rng.random((2, 300))).to(cuda)
+    before = two_min.launches
+    _assert_two_min_equal(two_min(C, v), two_min_plain(C, v))
+    assert two_min.launches == before + 1
+    for unroll in (1, 4):
+        _assert_two_min_equal(two_min_kernel(C, v, unroll=unroll), two_min_plain(C, v))
+    _assert_two_min_equal(two_min(C.float(), v.float()), two_min_plain(C.float(), v.float()))
+    assert two_min.launches == before + 4
+    with pytest.raises(TypeError, match="float64"):
+        two_min(C.half(), v.half())
+    with pytest.raises(TypeError, match="float64"):
+        two_min(C, v.float())

@@ -301,6 +301,13 @@ def test_port_imports_no_jax():
         "import lapgnn_tpu_torch.data.processors, lapgnn_tpu_torch.cli.generate_dataset\n"
         "import lapgnn_tpu_torch.cli.regenerate_assignments, lapgnn_tpu_torch.cli.train_one_gnn\n"
         "import lapgnn_tpu_torch.cli.train_progressive, lapgnn_tpu_torch.cli.train_dual_gnn\n"
+        "import lapgnn_tpu_torch.solver.api, lapgnn_tpu_torch.solver.lap_compat\n"
+        "import lapgnn_tpu_torch.solver.seed_baselines, lapgnn_tpu_torch.solver.py_sparse\n"
+        "import lapgnn_tpu_torch.bench, lapgnn_tpu_torch.bench.regression, lapgnn_tpu_torch.utils\n"
+        "import lapgnn_tpu_torch.cli.benchmark, lapgnn_tpu_torch.cli.main_benchmark\n"
+        "import lapgnn_tpu_torch.cli.profile_pipeline, lapgnn_tpu_torch.cli.benchmark_by_type\n"
+        "import lapgnn_tpu_torch.cli.comprehensive_benchmark\n"
+        "import lapgnn_tpu_torch.cli.large_scale_benchmark\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'msgpack'))"
         " or m == 'lapgnn_tpu' or m.startswith('lapgnn_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,compare,times,stream,train,eval,dual_train,front_ends]
+    python3 chip_smoke.py [--seed 0]
+                          [--phases build,compare,times,stream,train,eval,dual_train,front_ends,parallel]
 
 ``--phases`` runs a subset (for a first look at a changed kernel,
 ``build,stream`` after a change to the transfer layer, ``build,train`` after
 one to the training path, ``build,eval`` after one to the evaluation path,
 ``build,dual_train`` after one to DualGNN training, ``build,front_ends``
-after one to the solver front ends or the benchmark CLIs) and then prints no
-``ok`` line; with no arguments every phase runs.
+after one to the solver front ends or the benchmark CLIs, ``build,parallel``
+after one to the parallel package) and then prints no ``ok`` line; with no
+arguments every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -135,7 +137,24 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      classes at n = 1024 on uniform and sparse, ``LAPMODSolver`` on sparse at
      2048 and the route that answered; K1-K4 launched, each of their calls
      held against its plain version as in the eval phase.  At most 60 s.
- 12. Times: each kernel and its plain version at n = 2048 and 8192 beside
+ 12. Parallel: row-sharded serving at one_gnn_default's full width, n = 2048.
+     World 1 under NCCL (a TCP store on 127.0.0.1), on uniform and sparse:
+     ``make_sharded_pipeline`` equal in assignment and cost to the same
+     steps unsharded on the card and optimal against SciPy's float64 optimum
+     (1e-5 relative), ``make_sharded_seeded_solve`` from rank-1 seeds
+     bit-equal to ``lapjv_seeded_single``.  Two gloo ranks spawned on the one
+     card: the sharded solve on uniform bit-equal (x, y, v, cost) to the
+     unsharded solve on the card, ``make_sharded_predict`` (data 1 x model 2)
+     within atol 1e-5 of the same steps unsharded, ``shmap_col_min`` /
+     ``shmap_min_trick`` bit-equal to K1 / K2 on the whole matrix.  Every
+     K1, K2 and K4 call of both held against its plain version bit for bit,
+     every rank's collective log held to ``assert_no_matrix_allgather``; the
+     ms per sharded solve and each rank's largest collective.  Then
+     ``cli.scaling_benchmark`` (mesh 1, n = 2048, the roofline block at 2048,
+     ``--solve``; its results in the phase's JSON line, its launches apart
+     from the sharded path's) and the Dijkstra
+     augmenters on the card at n = 128 against the CPU.  At most 45 s.
+ 13. Times: each kernel and its plain version at n = 2048 and 8192 beside
      its bound (the larger of the bytes it must move over the HBM rate and
      the float32 operations over the card's float32 rate).  Median of
      CUDA-event timings, all reps queued behind a spin kernel so the host's
@@ -2445,6 +2464,405 @@ def phase_front_ends(torch, seed):
     return {"launches": launches, "max_abs_err": errs}
 
 
+# The parallel phase: row-sharded serving at one_gnn_default's full width.
+PAR_N = 2048
+PAR_FAMILIES = ("uniform", "sparse")
+PAR_DIJKSTRA_N = 128
+PAR_PREDICT_ATOL = 1e-5  # tests/test_torch_parallel.py's, the JAX test's
+PAR_WARM_N = 256  # a small solve first, so that no timed call builds or initialises
+PARALLEL_PHASE_LIMIT_S = 45.0
+# The roofline block at n = 2048 only: at 8192 its host-side instance
+# generation alone takes seconds of the phase's limit.  Run the CLI by hand
+# with ``--roofline-n 2048 8192`` for the larger size.
+PAR_SCALING_ARGV = ["--meshes", "1", "--n", "2048", "--roofline-n", "2048", "--solve"]
+
+
+@contextlib.contextmanager
+def _kernel_calls():
+    """Every K1 / K2 call (``col_min_kernel``, which both wrappers launch
+    through) and every K4 call (``two_min_kernel``) inside the block, kept
+    with its arguments and (for K1 / K2, a copy of) its result."""
+    import lapgnn_tpu_torch.ops.cuda.colmin as colmin_mod
+    import lapgnn_tpu_torch.ops.cuda.twomin as twomin_mod
+
+    calls = {"col_min": [], "min_trick": [], "two_min": []}
+
+    def colmin(real):
+        def run(C, u=None, **force):
+            out = real(C, u, **force)
+            calls["col_min" if u is None else "min_trick"].append(((C, u), out.clone()))
+            return out
+
+        return run
+
+    with _wrapped(colmin_mod, "col_min_kernel", colmin), \
+            _wrapped(twomin_mod, "two_min_kernel", _capture(calls["two_min"])):
+        yield calls
+
+
+def _hold_kernel_calls(torch, calls, what):
+    """``_kernel_calls``' calls against the plain versions, bit for bit (a
+    mixed-zero minimum of K1 / K2 only ``==``): {kernel: (calls, largest
+    absolute difference)}."""
+    out = {"two_min": (len(calls["two_min"]), _hold_two_min_calls(torch, calls["two_min"], what))}
+    for k in ("col_min", "min_trick"):
+        err = 0.0
+        for i, ((C, u), got) in enumerate(calls[k]):
+            e, _, _ = _hold_colmin(torch, k, got, _colmin_want(torch, C, u),
+                                   f"{what}, call {i}, shape {tuple(C.shape)}")
+            err = max(err, e)
+        out[k] = (len(calls[k]), err)
+    return out
+
+
+def _one_gnn_default(torch, device):
+    from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint, params_from_flax
+
+    params, meta, _ = load_checkpoint(CHECKPOINT)
+    model = build_model_from_meta(meta)
+    model.load_state_dict(params_from_flax(params))
+    return model.to(device).eval()
+
+
+def _plain_predict(torch, model, cost):
+    """``make_sharded_predict``'s steps on the whole batch, unsharded: the
+    sort-based features, the model, the 'auto' policy."""
+    from lapgnn_tpu_torch.ops.features import row_features
+    from lapgnn_tpu_torch.ops.sinkhorn import auto_select_seed
+
+    with torch.inference_mode():
+        u = model(row_features(cost), cost=cost)["u"].to(cost.dtype)
+        return auto_select_seed(cost, u)
+
+
+def _plain_pipeline(torch, model, C):
+    """``make_sharded_pipeline``'s steps on the whole matrix, unsharded."""
+    from lapgnn_tpu_torch.ops.dual import robust_normalize
+    from lapgnn_tpu_torch.ops.features import row_features
+    from lapgnn_tpu_torch.ops.rank1 import rank1_duals, select_best_seed
+    from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
+
+    with torch.inference_mode():
+        C_in, mn, a = robust_normalize(C[None])
+        u = model(row_features(C_in), cost=C_in)["u"][0] * a + mn
+        u, v = select_best_seed(C, (u, rank1_duals(C[None])[0][0]))
+        return lapjv_seeded_single(C, u, v, gate="both")
+
+
+def _rank1_seeds(torch, C):
+    from lapgnn_tpu_torch.ops.dual import fast_min_trick
+    from lapgnn_tpu_torch.ops.rank1 import rank1_duals
+
+    with torch.inference_mode():
+        u = rank1_duals(C)[0]
+        return u, fast_min_trick(C, u)
+
+
+def _par_cost(fam, seed):
+    import numpy as np
+
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+
+    return FAMILIES[fam](PAR_N, np.random.default_rng(seed)).astype(np.float32)
+
+
+def _load_kernels():
+    """Build or load every kernel library, so that no timed call does."""
+    from lapgnn_tpu_torch.ops.cuda._lib import KERNEL_LIBS
+
+    for lib in KERNEL_LIBS.values():
+        lib.load()
+
+
+def _warm_up(torch, mesh, run_pipeline=None):
+    """Load the kernels, open the collectives' communicators and run each
+    path once at n = PAR_WARM_N."""
+    from lapgnn_tpu_torch.parallel import local_rows
+    from lapgnn_tpu_torch.parallel.solver import make_sharded_seeded_solve
+
+    if mesh.device.type == "cuda":
+        _load_kernels()
+    C = torch.from_numpy(_par_cost("uniform", 1)[:PAR_WARM_N, :PAR_WARM_N]).to(mesh.device)
+    u, v = _rank1_seeds(torch, C)
+    make_sharded_seeded_solve(mesh)(local_rows(C, mesh), local_rows(u[:, None], mesh)[:, 0], v)
+    if run_pipeline is not None:
+        run_pipeline(local_rows(C, mesh))
+    torch.cuda.synchronize()
+    mesh.log.clear()
+
+
+def _wait_for(path, timeout_s=300.0):
+    deadline = time.monotonic() + timeout_s
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear within {timeout_s} s")
+        time.sleep(0.02)
+
+
+def _parallel_rank(rank, device, seed, out_dir):
+    """One of the two gloo ranks on the one card: the sharded solve from
+    rank-1 seeds, the sharded predict and the shmap column passes on uniform
+    at n = PAR_N, every K1 / K2 / K4 call held against its plain version;
+    what the parent compares goes to ``rank{rank}.pt``.  The rank sets up,
+    then waits for ``out_dir/go``, so that its start-up overlaps the
+    parent's world-1 work and its timed work does not."""
+    import torch
+
+    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick
+    from lapgnn_tpu_torch.parallel import (local_rows, make_mesh, make_sharded_predict,
+                                           shmap_col_min, shmap_min_trick)
+    from lapgnn_tpu_torch.parallel.solver import (assert_no_matrix_allgather,
+                                                  make_sharded_seeded_solve)
+
+    mesh = make_mesh(data=1, model=2, device=device)
+    C = torch.from_numpy(_par_cost("uniform", seed)).to(mesh.device)
+    u, v = _rank1_seeds(torch, C)
+    model = _one_gnn_default(torch, mesh.device)
+    C_blk, u_blk = local_rows(C, mesh), local_rows(u[:, None], mesh)[:, 0]
+    solve = make_sharded_seeded_solve(mesh)
+    predict = make_sharded_predict(model, mesh)
+    _warm_up(torch, mesh)
+    _wait_for(Path(out_dir) / "go")
+    _zero_launches()
+    mesh.log.clear()
+    with _kernel_calls() as calls:
+        t0 = time.perf_counter()
+        res = solve(C_blk, u_blk, v)
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        solve_log = max(e[1] for e in mesh.log)
+        assert_no_matrix_allgather(mesh.log, PAR_N, 2)
+        u_pred, v_pred = predict(C_blk[None])
+        col, mt = shmap_col_min(mesh)(C_blk), shmap_min_trick(mesh)(C_blk, u_blk)
+        torch.cuda.synchronize()
+    launches = _read_launches()
+    largest = max(e[1] for e in mesh.log)
+    assert_no_matrix_allgather(mesh.log, PAR_N, 2)
+    held = _hold_kernel_calls(torch, calls, f"parallel rank {rank}")
+    whole = {"col_min": col_min(C), "min_trick": min_trick(C, u)}
+    torch.save({
+        "x": res.col_of_row.cpu(), "y": res.row_of_col.cpu(), "v": res.v.cpu(),
+        "cost": res.cost.cpu(), "solve_ms": solve_ms, "solve_largest_collective": solve_log,
+        "largest_collective": largest, "u_pred": u_pred.cpu(), "v_pred": v_pred.cpu(),
+        "shmap_col_min_equal": torch.equal(col.view(torch.int32), whole["col_min"].view(torch.int32)),
+        "shmap_min_trick_equal": torch.equal(mt.view(torch.int32), whole["min_trick"].view(torch.int32)),
+        "launches": launches, "held": held,
+    }, f"{out_dir}/rank{rank}.pt")
+
+
+def _same_bits(a, b):
+    import torch
+
+    bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.cpu().view(bits), b.cpu().view(bits))
+
+
+def _par_world1(torch, seed):
+    """World 1 under NCCL (a TCP store on 127.0.0.1): the sharded pipeline
+    against the same steps unsharded and SciPy, the sharded solve against
+    the unsharded one, on ``PAR_FAMILIES``.  SciPy's optima are solved on
+    host threads (it releases the interpreter lock) while the card warms
+    up."""
+    import datetime
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from lapgnn_tpu_torch.parallel import local_rows, make_mesh, ring_min_trick
+    from lapgnn_tpu_torch.parallel.launch import free_port
+    from lapgnn_tpu_torch.parallel.solver import (assert_no_matrix_allgather,
+                                                  make_sharded_pipeline,
+                                                  make_sharded_seeded_solve)
+    from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
+
+    costs = [_par_cost(fam, seed + 17 * k) for k, fam in enumerate(PAR_FAMILIES)]
+    scipy_pool = ThreadPoolExecutor(len(costs))
+    optima = [scipy_pool.submit(_scipy_opt, C_np.astype(np.float64)) for C_np in costs]
+    scipy_pool.shutdown(wait=False)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    out, launches, held = {}, {}, []
+    try:
+        mesh = make_mesh(data=1, model=1, device="cuda")
+        model = _one_gnn_default(torch, mesh.device)
+        run, solve = make_sharded_pipeline(model, mesh), make_sharded_seeded_solve(mesh)
+        _warm_up(torch, mesh, run)
+        for fam, C_np, opt in zip(PAR_FAMILIES, costs, optima):
+            C = torch.from_numpy(C_np).cuda()
+            u, v = _rank1_seeds(torch, C)
+            C_blk = local_rows(C, mesh)
+            torch.cuda.synchronize()
+            _zero_launches()
+            mesh.log.clear()
+            with _kernel_calls() as calls:
+                t0 = time.perf_counter()
+                piped = run(C_blk)
+                torch.cuda.synchronize()
+                pipe_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                res = solve(C_blk, u, v)
+                torch.cuda.synchronize()
+                solve_ms = (time.perf_counter() - t0) * 1e3
+                ring = ring_min_trick(mesh)(C_blk, u)
+            for name, count in _read_launches().items():
+                launches[name] = launches.get(name, 0) + count
+            assert_no_matrix_allgather(mesh.log, PAR_N, 1)
+            held.append(_hold_kernel_calls(torch, calls, f"parallel world 1, {fam}"))
+            ref = _plain_pipeline(torch, model, C)
+            t0 = time.perf_counter()
+            unsharded = lapjv_seeded_single(C, u, v, gate="both")
+            torch.cuda.synchronize()
+            unsharded_ms = (time.perf_counter() - t0) * 1e3
+            x = piped.col_of_row.cpu().numpy()
+            opt = opt.result()
+            got = float(C_np.astype(np.float64)[np.arange(PAR_N), x].sum())
+            checks = {
+                "pipeline_assignment_equal": torch.equal(piped.col_of_row, ref.col_of_row),
+                "pipeline_cost_equal": _same_bits(piped.cost.reshape(1), ref.cost.reshape(1)),
+                "pipeline_optimal": abs(got - opt) <= 1e-5 * abs(opt),
+                "solve_bit_equal": (torch.equal(res.col_of_row, unsharded.col_of_row)
+                                    and torch.equal(res.row_of_col, unsharded.row_of_col)
+                                    and _same_bits(res.v, unsharded.v)
+                                    and _same_bits(res.cost.reshape(1), unsharded.cost.reshape(1))),
+                "ring_min_trick_equal": _same_bits(ring, (C - u[:, None]).amin(0)),
+            }
+            if not all(checks.values()):
+                raise AssertionError(f"parallel world 1, {fam}: {checks}")
+            out[fam] = {**checks, "pipeline_ms": pipe_ms, "sharded_solve_ms": solve_ms,
+                        "unsharded_solve_ms": unsharded_ms,
+                        "cost_float64": got, "scipy_cost": opt,
+                        "largest_collective": max(e[1] for e in mesh.log),
+                        "collectives": len(mesh.log)}
+    finally:
+        dist.destroy_process_group()
+    return out, launches, held, model
+
+
+def _par_dijkstra(torch, seed):
+    """``augment_all`` and ``augment_all_multisource`` on the card from
+    ``column_reduction`` at n = PAR_DIJKSTRA_N: equal to the CPU's."""
+    from lapgnn_tpu_torch.solver import augment_all, augment_all_multisource, column_reduction
+
+    C = torch.from_numpy(_par_cost("uniform", seed + 3)[:PAR_DIJKSTRA_N, :PAR_DIJKSTRA_N])
+    out = {}
+    for fn in (augment_all, augment_all_multisource):
+        card = fn(C.cuda(), column_reduction(C.cuda()))
+        cpu = fn(C, column_reduction(C))
+        same = (torch.equal(card.col_of_row.cpu(), cpu.col_of_row)
+                and torch.equal(card.row_of_col.cpu(), cpu.row_of_col)
+                and _same_bits(card.v, cpu.v))
+        if not same:
+            raise AssertionError(f"{fn.__name__} on the card differs from the CPU")
+        out[fn.__name__] = same
+    return out
+
+
+def phase_parallel(torch, seed):
+    """Row-sharded serving on the card at one_gnn_default's full width,
+    n = PAR_N: world 1 under NCCL (``_par_world1``), two gloo ranks on the
+    one card (``_parallel_rank``: the sharded solve bit-equal to the
+    unsharded one on the card, the sharded predict within PAR_PREDICT_ATOL of
+    the same steps unsharded, the shmap passes bit-equal to K1 / K2 on the
+    whole matrix), every K1 / K2 / K4 call of both held against its plain
+    version, the collective logs held to ``assert_no_matrix_allgather``;
+    then the scaling CLI and the Dijkstra augmenters.  Returns the launches
+    of each kernel on the sharded path (world 1 and 2; the scaling CLI's
+    timing loops are counted apart) and each one's largest difference."""
+    import json as _json
+    import tempfile
+
+    from lapgnn_tpu_torch.cli import scaling_benchmark
+    from lapgnn_tpu_torch.parallel.launch import spawn_ranks
+    from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        # the two ranks start up while world 1 runs, and wait for "go"
+        world2_run = pool.submit(spawn_ranks, _parallel_rank, 2, args=("cuda", seed, tmp),
+                                 backend="gloo", timeout=300)
+        try:
+            world1, launches, held, model = _par_world1(torch, seed)
+        finally:
+            Path(tmp, "go").touch()
+        world1_s = time.perf_counter() - t_phase
+        world2_run.result()
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+    C = torch.from_numpy(_par_cost("uniform", seed)).cuda()
+    u, v = _rank1_seeds(torch, C)
+    t0 = time.perf_counter()
+    unsharded = lapjv_seeded_single(C, u, v, gate="both")
+    torch.cuda.synchronize()
+    unsharded_ms = (time.perf_counter() - t0) * 1e3
+    u_ref, v_ref = _plain_predict(torch, model, C[None])
+    world2 = {}
+    for r, res in enumerate(ranks):
+        rows = slice(r * PAR_N // 2, (r + 1) * PAR_N // 2)
+        u_err = float((res["u_pred"][0] - u_ref[0, rows].cpu()).abs().max())
+        v_err = float((res["v_pred"][0] - v_ref[0].cpu()).abs().max())
+        checks = {
+            "solve_bit_equal": (torch.equal(res["x"], unsharded.col_of_row.cpu())
+                                and torch.equal(res["y"], unsharded.row_of_col.cpu())
+                                and _same_bits(res["v"], unsharded.v)
+                                and _same_bits(res["cost"].reshape(1), unsharded.cost.reshape(1))),
+            "predict_within_atol": u_err <= PAR_PREDICT_ATOL and v_err <= PAR_PREDICT_ATOL,
+            "shmap_col_min_equal": res["shmap_col_min_equal"],
+            "shmap_min_trick_equal": res["shmap_min_trick_equal"],
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"parallel rank {r} of 2: {checks} (u {u_err}, v {v_err})")
+        for name, count in res["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+        held.append(res["held"])
+        world2[f"rank{r}"] = {**checks, "sharded_solve_ms": res["solve_ms"],
+                              "unsharded_solve_ms": unsharded_ms,
+                              "predict_max_abs_err_u": u_err, "predict_max_abs_err_v": v_err,
+                              "largest_collective_solve": res["solve_largest_collective"],
+                              "largest_collective": res["largest_collective"]}
+    for k in ("col_min", "min_trick", "two_min"):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"the sharded path launched no {k}: {launches}")
+    world2_s = time.perf_counter() - t_phase - world1_s
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    scaling = scaling_benchmark.main(PAR_SCALING_ARGV)
+    scaling_s = time.perf_counter() - t0
+    launches_cli = _read_launches()
+    if launches_cli["row_features_stats"] < 1:
+        raise AssertionError("the scaling CLI's roofline block launched no K3")
+    dijkstra = _par_dijkstra(torch, seed)
+
+    errs = {k: max(h[k][1] for h in held) for k in ("col_min", "min_trick", "two_min")}
+    calls = {k: sum(h[k][0] for h in held) for k in ("col_min", "min_trick", "two_min")}
+    phase_s = time.perf_counter() - t_phase
+    _emit({"phase": "parallel", "n": PAR_N, "checkpoint": "artifacts/one_gnn_default",
+           "world1_nccl": world1, "world2_gloo_one_card": world2,
+           "kernel_calls_held": calls, "max_abs_err": errs, "launches": launches,
+           "scaling": {"seconds": scaling_s, "mesh_1": scaling["pipeline_edges_per_s_per_mesh"],
+                       "roofline": scaling["roofline"], "launches": launches_cli},
+           "dijkstra_card_equals_cpu": dijkstra, "world1_seconds": world1_s,
+           "world2_seconds": world2_s, "phase_seconds": phase_s})
+    print("parallel: " + _json.dumps({
+        "ms_per_sharded_solve": {"world1": {f: w["sharded_solve_ms"] for f, w in world1.items()},
+                                 "world2": {r: w["sharded_solve_ms"] for r, w in world2.items()}},
+        "ms_per_unsharded_solve": {"world1": {f: w["unsharded_solve_ms"] for f, w in world1.items()},
+                                   "world2": unsharded_ms},
+        "largest_collective": {"world1": {f: w["largest_collective"] for f, w in world1.items()},
+                               "world2": {r: w["largest_collective"] for r, w in world2.items()}},
+        "edges_per_s_mesh_1": {m: e["edges_per_s"] for m, e in
+                               scaling["pipeline_edges_per_s_per_mesh"].items()},
+        "min_trick": {n: {k: e[k] for k in e if k.startswith("min_trick")}
+                      for n, e in scaling["roofline"].items()},
+    }), flush=True)
+    if phase_s > PARALLEL_PHASE_LIMIT_S:
+        raise AssertionError(
+            f"the parallel phase took {phase_s:.1f} s, above {PARALLEL_PHASE_LIMIT_S} s")
+    return {"launches": launches, "max_abs_err": errs}
+
+
 def _time_ms(torch, fn, reps, flush, queued=True, flush_by_read=False):
     """Median CUDA-event time of ``fn`` with L2 flushed before each launch:
     by ``flush.zero_()``, which leaves L2 full of dirty lines that the timed
@@ -2772,7 +3190,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
                     help="comma-separated subset of build,compare,times,stream,train,eval,"
-                         "dual_train,front_ends (no ok line)")
+                         "dual_train,front_ends,parallel (no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -2801,7 +3219,8 @@ def main() -> int:
                       "train": lambda: phase_train(torch, args.seed),
                       "eval": lambda: phase_eval(torch, args.seed),
                       "dual_train": lambda: phase_dual_train(torch, args.seed),
-                      "front_ends": lambda: phase_front_ends(torch, args.seed)}
+                      "front_ends": lambda: phase_front_ends(torch, args.seed),
+                      "parallel": lambda: phase_parallel(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
@@ -2828,6 +3247,7 @@ def main() -> int:
         evaluated = phase_eval(torch, args.seed, eval_records)
         dual = phase_dual_train(torch, args.seed, train_data)
         front = phase_front_ends(torch, args.seed)
+        par = phase_parallel(torch, args.seed)
         times = phase_times(torch, args.seed)
     except Exception:
         traceback.print_exc()
@@ -2848,6 +3268,7 @@ def main() -> int:
                             "launches_eval": evaluated["launches"][kname],
                             "launches_dual_train": dual["launches"][kname],
                             "launches_front_ends": front["launches"][kname],
+                            "launches_parallel": par["launches"][kname],
                             **{f"at_{k}_dual_train": v for k, v in dual["greedy"].items()},
                             "card": card})
             continue
@@ -2858,8 +3279,10 @@ def main() -> int:
             "launches_eval": evaluated["launches"][kname],
             "launches_dual_train": dual["launches"][kname],
             "launches_front_ends": front["launches"][kname],
+            "launches_parallel": par["launches"][kname],
             "max_abs_err": max(errs[kname], evaluated["max_abs_err"].get(kname, 0.0),
-                               front["max_abs_err"][kname]),
+                               front["max_abs_err"][kname],
+                               par["max_abs_err"].get(kname, 0.0)),
             "n": N_E2E,
             **t[N_E2E],
             "at_n_8192": t[8192],

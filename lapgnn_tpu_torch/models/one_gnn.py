@@ -25,7 +25,7 @@ module's ``training`` flag says.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -95,7 +95,13 @@ class OneGNN(nn.Module):
     row, as flax's), masked rows 0.
 
     ``context=True`` adds the DeepSets global context (flax ``ctx_fc1``,
-    ``ctx_fc2``, ``ctx_norm``).  ``topk_impl="iter"`` takes the top k by k
+    ``ctx_fc2``, ``ctx_norm``).
+
+    Only the gauge (the mean of u) and the context pool read other rows.
+    When the rows are one rank's block of a row-sharded instance,
+    ``row_reduce(t, op)`` combines a partial reduction ``t`` over the rows
+    of every rank (``op`` "sum" or "max"); the gauge and the pools are then
+    taken over every row.  ``topk_impl="iter"`` takes the top k by k
     rounds of argmin instead of ``torch.topk`` (the JAX package's form for a
     row-sharded cost); the values, and so the output, are the same.
     """
@@ -153,6 +159,7 @@ class OneGNN(nn.Module):
         cost: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         mask: Optional[torch.Tensor] = None,
+        row_reduce: Optional[Callable[[torch.Tensor, str], torch.Tensor]] = None,
     ) -> dict:
         if row_feat.ndim == 2:
             row_feat = row_feat[None]
@@ -160,7 +167,7 @@ class OneGNN(nn.Module):
             mask = mask[None]
         h = self.input_proj(row_feat)
         if self.context:
-            h = self._global_context(h, mask)
+            h = self._global_context(h, mask, row_reduce)
         for block in self.blocks:
             h = block(h, generator)
         u_pre = self.pre_out(h)[..., 0]
@@ -168,16 +175,34 @@ class OneGNN(nn.Module):
             h = h + self._sparse_refine(h, cost, u_pre, generator, mask)
         head_fc1, gelu, _, head_fc2 = self.row_out
         y = dropout(gelu(head_fc1(h)), self.dropout, generator)
-        u = center_gauge(head_fc2(y)[..., 0])
+        u = head_fc2(y)[..., 0]
+        if row_reduce is None:
+            u = center_gauge(u)
+        else:
+            if mask is not None:
+                raise ValueError("row_reduce takes no mask")
+            rows = row_reduce(torch.full_like(u[..., :1], u.shape[-1]), "sum")
+            u = u - row_reduce(u.sum(-1, keepdim=True), "sum") / rows
         if mask is not None:
             u = torch.where(mask, u, 0.0)
         return {"u": u}
 
-    def _global_context(self, h: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def _global_context(
+        self,
+        h: torch.Tensor,
+        mask: Optional[torch.Tensor],
+        row_reduce: Optional[Callable[[torch.Tensor, str], torch.Tensor]] = None,
+    ) -> torch.Tensor:
         """Masked mean and max pool over the rows, an MLP, added back to
         every row under a LayerNorm.  Masked rows move neither pool, so a
         padded batch gets the unpadded instance's context."""
-        if mask is not None:
+        if row_reduce is not None:
+            if mask is not None:
+                raise ValueError("row_reduce takes no mask")
+            rows = row_reduce(torch.full_like(h[..., 0, :1], h.shape[-2]), "sum")
+            mean = row_reduce(h.sum(-2), "sum") / rows
+            mx = row_reduce(h.amax(-2), "max")
+        elif mask is not None:
             m = mask[..., None]  # (B, n, 1)
             cnt = torch.clamp_min(m.sum(-2).to(h.dtype), 1.0)
             mean = torch.where(m, h, 0.0).sum(-2) / cnt

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from .cuda.colmin import min_trick
+from .partition import WHOLE, RowPartition
 
 __all__ = [
     "BIG",
@@ -84,21 +85,22 @@ def fast_min_trick(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def robust_normalize(
-    C: torch.Tensor, sentinel: float = 0.5e6, clip: float = 3.0
+    C: torch.Tensor, sentinel: float = 0.5e6, clip: float = 3.0, part: RowPartition = WHOLE
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-instance affine normalization robust to forbidden-edge sentinels.
 
     The scale comes from the sub-sentinel entries only; sentinel entries land
     above 1 and are clipped to ``clip``.  Returns (C_normalized, mn, a) with
-    C = a*C' + mn exact on the sub-sentinel entries."""
+    C = a*C' + mn exact on the sub-sentinel entries.  With a row partition
+    ``part`` C holds its rows and the extremes are every row's."""
     is_real = C < sentinel
     # +/-inf fills, not +/-BIG: a -BIG fill could win the max when every real
     # entry is below -1e6 (see the JAX version).
-    mn = torch.where(is_real, C, torch.inf).amin((-2, -1), keepdim=True)
-    mx = torch.where(is_real, C, -torch.inf).amax((-2, -1), keepdim=True)
-    any_real = is_real.flatten(-2).any(-1)[..., None, None]
-    mn = torch.where(any_real, mn, C.amin((-2, -1), keepdim=True))
-    mx = torch.where(any_real, mx, C.amax((-2, -1), keepdim=True))
+    mn = part.min(torch.where(is_real, C, torch.inf).amin((-2, -1), keepdim=True))
+    mx = part.max(torch.where(is_real, C, -torch.inf).amax((-2, -1), keepdim=True))
+    any_real = part.max(is_real.flatten(-2).any(-1))[..., None, None]
+    mn = torch.where(any_real, mn, part.min(C.amin((-2, -1), keepdim=True)))
+    mx = torch.where(any_real, mx, part.max(C.amax((-2, -1), keepdim=True)))
     a = torch.clamp_min(mx - mn, 1e-12)
     C_n = torch.clamp_max((C - mn) / a, clip)
     return C_n, mn[..., 0, 0], a[..., 0, 0]

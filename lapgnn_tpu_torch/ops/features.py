@@ -117,8 +117,18 @@ def _entropy(C: torch.Tensor, dim: int) -> torch.Tensor:
     return -(p * torch.log(p + EPS)).sum(dim)
 
 
-def row_features(C: torch.Tensor) -> torch.Tensor:
-    """Sort-based 21-D row features: (n, m) -> (n, 21), (B, n, m) -> (B, n, 21)."""
+def row_features(
+    C: torch.Tensor,
+    col_min: Optional[torch.Tensor] = None,
+    pos: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sort-based 21-D row features: (n, m) -> (n, 21), (B, n, m) -> (B, n, 21).
+
+    Every channel but two reads only its own row.  When C is one rank's block
+    of a row-sharded matrix, the caller passes what the other two need from
+    the whole matrix: ``col_min``, the column minima of every row ((B, m) or
+    (m,)), for the is-col-best channel, and ``pos``, the positional
+    encodings of the block's global rows ((n, 8))."""
     squeeze = C.ndim == 2
     if squeeze:
         C = C[None]
@@ -151,10 +161,12 @@ def row_features(C: torch.Tensor) -> torch.Tensor:
     k_std = k_small.std(-1, correction=0)
 
     near_best = (Cf <= row_min[..., None] * 1.1).to(torch.float32).mean(-1)
-    col_min = Cf.amin(-2)
+    col_min = Cf.amin(-2) if col_min is None else col_min.to(torch.float32).expand(B, m)
     is_col_best = (Cf == col_min[..., None, :]).to(torch.float32).sum(-1) / m
 
-    pos = positional_encodings(n, device=C.device).expand(B, n, 2 * len(POS_FREQS))
+    if pos is None:
+        pos = positional_encodings(n, device=C.device)
+    pos = pos.expand(B, n, 2 * len(POS_FREQS))
     stats = torch.stack(
         [row_min, row_max, row_mean, row_std, row_mad, row_entropy,
          second_best_gap, competition, k_mean, k_std, difficulty,

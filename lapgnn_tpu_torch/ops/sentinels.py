@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from .partition import WHOLE, RowPartition
+
 __all__ = ["BIG", "clip_cost_sentinels"]
 
 # Forbidden-edge sentinel of the sparse dataset family.
@@ -18,8 +20,10 @@ def clip_cost_sentinels(
     cost: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     threshold: float = 0.5 * BIG,
+    part: RowPartition = WHOLE,
 ) -> torch.Tensor:
-    """Clip sentinels to the per-instance maximum of the real entries.
+    """Clip sentinels to the per-instance maximum of the real entries (of
+    every row of the row partition ``part``).
 
     Clipped <= true entrywise, so dual feasibility on the clipped problem
     implies feasibility on the true one.  An all-sentinel instance stays
@@ -27,6 +31,6 @@ def clip_cost_sentinels(
     finite = cost < threshold
     if mask is not None:
         finite = finite & mask[..., :, None] & mask[..., None, :]
-    fmax = torch.where(finite, cost, -torch.inf).amax((-2, -1), keepdim=True)
+    fmax = part.max(torch.where(finite, cost, -torch.inf).amax((-2, -1), keepdim=True))
     fmax = torch.where(torch.isfinite(fmax), fmax, torch.inf)
     return torch.minimum(cost, fmax)

@@ -15,6 +15,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from .dual import fast_min_trick
+from .partition import WHOLE, RowPartition
 from .rank1 import rank1_duals
 from .sentinels import clip_cost_sentinels
 
@@ -35,14 +36,15 @@ COLD_FINISH_EPS = 8e-5
 COLD_FINISH_MIN_N = 4096
 
 
-def _robust_scale(cost: torch.Tensor) -> torch.Tensor:
+def _robust_scale(cost: torch.Tensor, part: RowPartition = WHOLE) -> torch.Tensor:
     """Per-instance spread q90 - q10 on a strided subsample of <= 65536
-    entries, floored at 1e-6."""
-    n_r, n_c = cost.shape[-2], cost.shape[-1]
+    entries, floored at 1e-6.  With a row partition ``part`` the sample
+    strides every row and holds them in their global order."""
+    n_r, n_c = cost.shape[-2] * part.size, cost.shape[-1]
     red = 1
     while (n_r // red) * (n_c // red) > 65536:
         red *= 2
-    sample = cost[..., ::red, ::red].reshape(cost.shape[0], -1)
+    sample = part.sample_rows(cost[..., ::red], red).reshape(cost.shape[0], -1)
     q = _quantiles(sample, (0.1, 0.9))
     return torch.clamp_min(q[1] - q[0], 1e-6)
 
@@ -75,35 +77,38 @@ def sinkhorn_refine(
     eps_schedule: Sequence[float] = DEFAULT_EPS_SCHEDULE,
     iters_per_eps: int = DEFAULT_ITERS_PER_EPS,
     clip_sentinels: bool = True,
+    part: RowPartition = WHOLE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Refine row duals ``u0`` toward dual optimality; returns feasible (u, v).
 
     ``cost`` is (B, n, n) or (n, n), ``u0`` matches.  Costs
-    ``2 * len(eps_schedule) * iters_per_eps`` reads of C (64 at the defaults)."""
+    ``2 * len(eps_schedule) * iters_per_eps`` reads of C (64 at the defaults).
+    With a row partition ``part`` cost and u hold its rows: each row pass is
+    local, each column pass a logsumexp combined over every row."""
     if cost.ndim == 2:
         u, v = sinkhorn_refine(
-            cost[None], u0[None], eps_schedule, iters_per_eps, clip_sentinels
+            cost[None], u0[None], eps_schedule, iters_per_eps, clip_sentinels, part
         )
         return u[0], v[0]
     if tuple(eps_schedule) == DEFAULT_EPS_SCHEDULE and cost.shape[-1] >= COLD_FINISH_MIN_N:
         eps_schedule = DEFAULT_EPS_SCHEDULE + (COLD_FINISH_EPS,)
     cost_f = cost.to(torch.float32)
-    cost_r = clip_cost_sentinels(cost_f) if clip_sentinels else cost_f
-    scale = _robust_scale(cost_r)[:, None, None]
+    cost_r = clip_cost_sentinels(cost_f, part=part) if clip_sentinels else cost_f
+    scale = _robust_scale(cost_r, part)[:, None, None]
 
     u = u0.to(torch.float32)
-    v = (cost_r - u[..., :, None]).amin(-2)
+    v = part.min((cost_r - u[..., :, None]).amin(-2))
     for eps_rel in torch.tensor(eps_schedule, dtype=torch.float32).tolist():
         eps = torch.tensor(eps_rel, dtype=torch.float32, device=cost.device) * scale
         eps1 = eps[..., 0]
         for _ in range(iters_per_eps):
             u = -eps1 * torch.logsumexp((v[..., None, :] - cost_r) / eps, dim=-1)
-            v = -eps1 * torch.logsumexp((u[..., :, None] - cost_r) / eps, dim=-2)
+            v = -eps1 * part.logsumexp((u[..., :, None] - cost_r) / eps)
     # Exact feasibility on the true matrix in its own dtype: the entropic
     # duals carry O(eps) slack violations, which the alternating min-trick
     # projection removes.
     u = (cost - v.to(cost.dtype)[..., None, :]).amin(-1)
-    v = (cost - u[..., :, None]).amin(-2)
+    v = part.min((cost - u[..., :, None]).amin(-2))
     return u, v
 
 
@@ -113,12 +118,16 @@ def collision_veto_mask(uniq: torch.Tensor, n: int) -> torch.Tensor:
     return uniq >= uniq.amax(0, keepdim=True) - n // 4
 
 
-def uniq_argmin_count(cost: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Number of distinct per-row argmin columns of the reduced matrix (B,).
-    ``torch.argmin`` returns the first minimal index, as ``jnp.argmin`` does."""
+def uniq_argmin_count(
+    cost: torch.Tensor, u: torch.Tensor, v: torch.Tensor, part: RowPartition = WHOLE
+) -> torch.Tensor:
+    """Number of distinct per-row argmin columns of the reduced matrix (B,),
+    over every row of the row partition ``part``: each row marks its argmin
+    column, and the marks are merged by a maximum.  ``torch.argmin`` returns
+    the first minimal index, as ``jnp.argmin`` does."""
     am = torch.argmin(cost - u[..., :, None] - v[..., None, :], dim=-1)
-    s = torch.sort(am, dim=-1).values
-    return 1 + (s[..., 1:] != s[..., :-1]).sum(-1)
+    seen = torch.zeros(am.shape[:-1] + cost.shape[-1:], dtype=torch.int32, device=cost.device)
+    return part.max(seen.scatter_(-1, am, 1)).sum(-1)
 
 
 def _take(stacked: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -130,6 +139,7 @@ def auto_select_seed(
     cost: torch.Tensor,
     u_gnn: torch.Tensor,
     min_trick: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    part: RowPartition = WHOLE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The serving 'auto' seed policy: rank-1 candidate beside the model
     seed, Sinkhorn refinement of the objective winner, then a three-way
@@ -138,24 +148,28 @@ def auto_select_seed(
     The two candidates' min-trick projections go through ``min_trick``,
     by default ``fast_min_trick`` (kernel K2 on a CUDA tensor); the DualGNN
     evaluation passes the plain ``ops.dual.min_trick_v``, as the JAX
-    evaluation does."""
+    evaluation does.  With a row partition ``part`` cost and u_gnn hold its
+    rows, and ``min_trick`` must combine over every row (``part.min_trick``)."""
     if min_trick is None:
         min_trick = fast_min_trick
     if cost.ndim == 2:
-        u, v = auto_select_seed(cost[None], u_gnn[None], min_trick)
+        u, v = auto_select_seed(cost[None], u_gnn[None], min_trick, part)
         return u[0], v[0]
 
-    u_r1, _ = rank1_duals(cost)
+    def objective(u, v):
+        return part.sum(u.sum(-1)) + v.sum(-1)
+
+    u_r1, _ = rank1_duals(cost, part=part)
     us = [u_gnn, u_r1]
     vs = [min_trick(cost, u) for u in us]
-    objs = [u.sum(-1) + v.sum(-1) for u, v in zip(us, vs)]
+    objs = [objective(u, v) for u, v in zip(us, vs)]
     pick01 = torch.stack(objs, 0).argmax(0)  # first maximum on ties, as jnp
-    u_sk, v_sk = sinkhorn_refine(cost, _take(torch.stack(us, 0), pick01))
+    u_sk, v_sk = sinkhorn_refine(cost, _take(torch.stack(us, 0), pick01), part=part)
 
     us.append(u_sk)
     vs.append(v_sk)
-    objs.append(u_sk.sum(-1) + v_sk.sum(-1))
-    uniq = torch.stack([uniq_argmin_count(cost, u, v) for u, v in zip(us, vs)], 0)
+    objs.append(objective(u_sk, v_sk))
+    uniq = torch.stack([uniq_argmin_count(cost, u, v, part) for u, v in zip(us, vs)], 0)
     ok = collision_veto_mask(uniq, cost.shape[-1])
     obj = torch.where(ok, torch.stack(objs, 0), -torch.inf)
     best = obj.argmax(0)

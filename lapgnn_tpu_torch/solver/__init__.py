@@ -1,10 +1,15 @@
 """LAP solver layer: the device JV (cold and seeded), the native host
-solvers, the solver classes and the cross-solver gate.
+solvers, the solver classes and the cross-solver gate."""
 
-The JAX package's pop-at-a-time Dijkstra family (``augment_all``) is not
-ported yet, so its name is not exported here."""
-
-from .jv import Matching, column_reduction, lapjv_batch, lapjv_single, matching_cost
+from .jv import (
+    Matching,
+    augment_all,
+    augment_all_multisource,
+    column_reduction,
+    lapjv_batch,
+    lapjv_single,
+    matching_cost,
+)
 from .seeded import (
     SeededResult,
     default_tight_eps,
@@ -15,6 +20,8 @@ from .seeded import (
 
 __all__ = [
     "Matching",
+    "augment_all",
+    "augment_all_multisource",
     "column_reduction",
     "lapjv_batch",
     "lapjv_single",

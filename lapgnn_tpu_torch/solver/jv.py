@@ -19,8 +19,18 @@ float operation is the JAX one in the same order, so on the same float32
 input the assignments and duals equal the JAX solver's bit for bit; the
 argmins take the first index on ties, as ``jnp.argmin`` does.
 
-Not ported: the pop-at-a-time Dijkstra family (``augment_all``,
-``augment_all_multisource`` and their helpers), which no serving path runs.
+The pop-at-a-time Dijkstra family (``augment_all``, ``augment_all_multisource``)
+pops one column per iteration: the argmin over the open columns is read on the
+host (one sync a pop), the relaxation through the popped column's row runs on
+the device, and the flip walks the path on the host, as the sweep's flips do.
+Its bounds are the JAX ones: at most n + 1 pops a search, n + 1 steps a flip,
+n + 1 rounds.
+
+The functions of the seeded solve's path also take a row partition
+(``part``, ``ops.partition``).  The default, ``WHOLE``, holds every row and combines nothing;
+``parallel.sharded.ShardedRows`` holds one contiguous block of rows per rank
+and combines the O(n) partial results with collectives, so the same code is
+the row-sharded solve.
 """
 
 from __future__ import annotations
@@ -32,10 +42,14 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops.partition import WHOLE, RowPartition
+
 __all__ = [
     "Matching",
     "SolveStats",
     "column_reduction",
+    "augment_all",
+    "augment_all_multisource",
     "augment_all_sweep",
     "polish_matching",
     "lapjv_single",
@@ -72,6 +86,7 @@ class SolveStats:
     arr_rounds: int = 0
     aug_rounds: int = 0
     sweeps: int = 0
+    pops: int = 0
     flip_steps: int = 0
     host_syncs: int = 0
     flip_ms: float = 0.0
@@ -106,21 +121,25 @@ class SolveStats:
             self.stage_ms[name] = self.stage_ms.get(name, 0.0) + ms
 
 
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
 
 
-def matching_cost(C: torch.Tensor, col_of_row: torch.Tensor) -> torch.Tensor:
+def matching_cost(
+    C: torch.Tensor, col_of_row: torch.Tensor, part: RowPartition = WHOLE
+) -> torch.Tensor:
     """Total assignment cost sum_i C[i, x_i] (batched over leading dims).
     A free row (-1) reads the last column, as ``jnp.take_along_axis``
     normalises a negative index."""
-    x = col_of_row.to(INT)
+    x = part.local(col_of_row.to(INT))
     x = torch.where(x < 0, x + C.shape[-1], x)
-    return C.gather(-1, x[..., None])[..., 0].sum(-1)
+    return part.gather(C.gather(-1, x[..., None])[..., 0]).sum(-1)
 
 
-def column_reduction(C: torch.Tensor) -> Matching:
+def column_reduction(C: torch.Tensor, part: RowPartition = WHOLE) -> Matching:
     """Column reduction + reduction transfer (jv.py:71).
 
     v_j = min_i C_ij with y_j its first argmin row; a row claimed by several
@@ -129,7 +148,7 @@ def column_reduction(C: torch.Tensor) -> Matching:
     """
     n = C.shape[-1]
     iota = torch.arange(n, dtype=INT, device=C.device)
-    v, y0 = torch.min(C, dim=0)
+    v, y0 = part.argmin(C)
     x = torch.full((n,), -1, dtype=INT, device=C.device).scatter_reduce_(
         0, y0, iota, "amax"
     )
@@ -137,8 +156,8 @@ def column_reduction(C: torch.Tensor) -> Matching:
     claims = torch.bincount(y0, minlength=n)
     unique_rows = (claims == 1) & (x >= 0)
     red = C - v[None, :]
-    red_excl = torch.where(iota[None, :] == x[:, None], float("inf"), red)
-    slack = red_excl.amin(1)
+    red_excl = torch.where(iota[None, :] == part.local(x)[:, None], float("inf"), red)
+    slack = part.gather(red_excl.amin(1))
     safe_x = torch.where(x >= 0, x, 0)
     delta = torch.where(unique_rows & torch.isfinite(slack), slack, 0.0)
     # x is injective on assigned rows; the free rows add -0.0 at column 0.
@@ -164,6 +183,140 @@ def _bounded_augment_loop(
     return m
 
 
+def _argmin_host(t: torch.Tensor, stats: SolveStats) -> int:
+    """First index of the minimum of a vector, read on the host: the first
+    NaN if there is one, as ``jnp.argmin``."""
+    return int(stats.item(torch.argmin(t)))
+
+
+def _dijkstra_to_free_col(
+    C: torch.Tensor,
+    row_of_col: List[int],
+    v: torch.Tensor,
+    d0: torch.Tensor,
+    pred0: torch.Tensor,
+    stats: SolveStats,
+) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """Pop the open column of least distance; stop at a free one, else relax
+    every open column through the popped column's row (jv.py:120).  At most
+    n + 1 pops: a NaN or all-inf search returns ``final_j = -1``.  Ends with
+    the READY-set dual update v_j += d_j - mind on the popped columns.
+    ``row_of_col`` is the host copy of y, fixed for the search."""
+    n = C.shape[-1]
+    inf = float("inf")
+    d, pred = d0, pred0
+    scanned = torch.zeros((n,), dtype=torch.bool, device=C.device)
+    mind = torch.zeros((), dtype=C.dtype, device=C.device)
+    final_j, steps = -1, 0
+    while final_j < 0 and steps <= n:
+        d_open = torch.where(scanned, inf, d)
+        j = _argmin_host(d_open, stats)
+        mind = d_open[j]
+        i = row_of_col[j]
+        steps += 1
+        if i < 0:
+            final_j = j
+            break
+        scanned[j] = True
+        # the matched row's slack at its own column under the current d
+        h = C[i, j] - v[j] - mind
+        cand = C[i] - v - h
+        improve = ~scanned & (cand < d)
+        d = torch.where(improve, cand, d)
+        pred = torch.where(improve, i, pred)
+    stats.pops += steps
+    return final_j, pred, torch.where(scanned, v + d - mind, v)
+
+
+def _find_augmenting_path(
+    C: torch.Tensor, free_row: int, row_of_col: List[int], v: torch.Tensor, stats: SolveStats
+) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """Dijkstra from row ``free_row`` to the nearest free column (jv.py:180)."""
+    n = C.shape[-1]
+    pred0 = torch.full((n,), free_row, dtype=INT, device=C.device)
+    return _dijkstra_to_free_col(C, row_of_col, v, C[free_row] - v, pred0, stats)
+
+
+def _multisource_path(
+    C: torch.Tensor, free_row: torch.Tensor, row_of_col: List[int], v: torch.Tensor,
+    stats: SolveStats,
+) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """Dijkstra from every free row at once (jv.py:276): each free row is
+    normalised by its implicit potential min_j (C_fj - v_j), so each reaches
+    some column at distance 0; first-index argmin for the predecessor."""
+    inf = float("inf")
+    red = C - v[None, :]
+    u_free = torch.where(free_row[:, None], red, inf).amin(1)
+    norm = torch.where(free_row[:, None], red - u_free[:, None], inf)
+    d0, pred0 = torch.min(norm, dim=0)
+    return _dijkstra_to_free_col(C, row_of_col, v, d0, pred0, stats)
+
+
+def _flip_path_host(
+    x: List[int], y: List[int], pred: List[int], final_j: int, stop_row: Optional[int]
+) -> int:
+    """Flip the alternating path ending at ``final_j`` in place, at most n + 1
+    steps (jv.py:193, :300): until the row ``stop_row`` is reached, or, with
+    ``stop_row`` None, a row that was free.  Negative indices wrap, as JAX's
+    indexing normalises them (a search that found nothing has final_j = -1).
+    Returns the steps walked."""
+    n = len(pred)
+    j, done, k = final_j, False, 0
+    while not done and k <= n:
+        i = pred[j]
+        y[j] = i
+        next_j = x[i]
+        x[i] = j
+        done = next_j < 0 if stop_row is None else i == stop_row
+        k += 1
+        j = next_j
+    return k
+
+
+def _flip_round(
+    m: Matching, v: torch.Tensor, final_j: int, pred: torch.Tensor,
+    stop_row: Optional[int], stats: SolveStats,
+) -> Matching:
+    xs, ys, ps = stats.to_host(torch.stack([m.col_of_row, m.row_of_col, pred.to(INT)]))
+    stats.flip_steps += _flip_path_host(xs, ys, ps, final_j, stop_row)
+    xy = stats.to_device([xs, ys], m.col_of_row)
+    return Matching(xy[0], xy[1], v)
+
+
+def _one_path_round(C: torch.Tensor, m: Matching, stats: SolveStats) -> Matching:
+    """One free row (the first) augmented along its shortest path (jv.py:248)."""
+    free_row = _argmin_host(m.col_of_row, stats)
+    y = stats.to_host(m.row_of_col)
+    final_j, pred, v = _find_augmenting_path(C, free_row, y, m.v, stats)
+    return _flip_round(m, v, final_j, pred, free_row, stats)
+
+
+def _one_multisource_round(C: torch.Tensor, m: Matching, stats: SolveStats) -> Matching:
+    """The nearest free column from any free row, flipped back to the free
+    row its path reaches (jv.py:255)."""
+    y = stats.to_host(m.row_of_col)
+    final_j, pred, v = _multisource_path(C, m.col_of_row < 0, y, m.v, stats)
+    return _flip_round(m, v, final_j, pred, None, stats)
+
+
+def augment_all(C: torch.Tensor, m: Matching, stats: Optional[SolveStats] = None) -> Matching:
+    """Shortest augmenting path for one free row at a time until none is
+    free, at most n + 1 rounds (jv.py:262)."""
+    stats = SolveStats() if stats is None else stats
+    return _bounded_augment_loop(m, C.shape[-1], lambda m: _one_path_round(C, m, stats), stats)
+
+
+def augment_all_multisource(
+    C: torch.Tensor, m: Matching, stats: Optional[SolveStats] = None
+) -> Matching:
+    """One multi-source search and flip a round until no row is free, at most
+    n + 1 rounds (jv.py:329)."""
+    stats = SolveStats() if stats is None else stats
+    return _bounded_augment_loop(
+        m, C.shape[-1], lambda m: _one_multisource_round(C, m, stats), stats
+    )
+
+
 def _sweep_shortest_paths(
     red: torch.Tensor,
     free_row: torch.Tensor,
@@ -173,6 +326,7 @@ def _sweep_shortest_paths(
     max_sweeps: int,
     free_col: Optional[torch.Tensor] = None,
     stats: Optional[SolveStats] = None,
+    part: RowPartition = WHOLE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Min-plus Bellman–Ford over columns relaxed through rows (jv.py:346):
     d_k = min(d_k, min_{matched i} (d[x_i] + red[i, k])), first-index argmin
@@ -185,7 +339,7 @@ def _sweep_shortest_paths(
     changed, sweeps = True, 0
     while changed and sweeps <= max_sweeps:
         e = torch.where(free_row, inf, d[x_safe])
-        best, best_i = torch.min(e[:, None] + red, dim=0)
+        best, best_i = part.argmin(e[:, None] + red)
         improve = best < d
         d = torch.where(improve, best, d)
         pred_row = torch.where(improve, best_i, pred_row)
@@ -289,7 +443,10 @@ def _flip_disjoint_paths(
 
 
 def augment_all_sweep(
-    C: torch.Tensor, m: Matching, stats: Optional[SolveStats] = None
+    C: torch.Tensor,
+    m: Matching,
+    stats: Optional[SolveStats] = None,
+    part: RowPartition = WHOLE,
 ) -> Matching:
     """Augment free rows by min-plus sweep shortest paths, a tie group of
     paths per round (jv.py:533): implicit row potentials, clamped reduced
@@ -303,10 +460,11 @@ def augment_all_sweep(
 
     def body(m: Matching) -> Matching:
         x, y, v = m
-        free_row = x < 0
+        x_loc = part.local(x)
+        free_row = x_loc < 0
         free_col = y < 0
         slack = C - v[None, :]
-        x_safe = torch.where(x >= 0, x, 0)
+        x_safe = torch.where(x_loc >= 0, x_loc, 0)
         u_matched = slack.gather(1, x_safe[:, None])[:, 0]
         u_free = slack.amin(1)
         u = torch.where(free_row, u_free, u_matched)
@@ -314,8 +472,10 @@ def augment_all_sweep(
         # jnp.maximum(red, 0.0): +0.0 for either zero, NaN propagates
         red = torch.where(red <= 0, 0.0, red)
         src = torch.where(free_row[:, None], red, inf)
-        d0, pred0 = torch.min(src, dim=0)
-        d, pred_row = _sweep_shortest_paths(red, free_row, x_safe, d0, pred0, n, free_col, stats)
+        d0, pred0 = part.argmin(src)
+        d, pred_row = _sweep_shortest_paths(
+            red, free_row, x_safe, d0, pred0, n, free_col, stats, part
+        )
         d_free = torch.where(free_col, d, inf)
         delta = d_free.amin()
         v = v + torch.minimum(d, delta) - delta
@@ -332,27 +492,29 @@ def polish_matching(
     m: Matching,
     eps: Optional[float] = None,
     stats: Optional[SolveStats] = None,
+    part: RowPartition = WHOLE,
 ) -> Matching:
     """Exactness polish (jv.py:602): unmatch every row whose matched slack
     exceeds its row minimum by more than the threshold, re-augment exactly."""
     n = C.shape[-1]
     iota = torch.arange(n, dtype=INT, device=C.device)
     x, y, v = m
+    x_loc = part.local(x)
     slack = C - v[None, :]
-    x_safe = torch.where(x >= 0, x, 0)
+    x_safe = torch.where(x_loc >= 0, x_loc, 0)
     matched_slack = slack.gather(1, x_safe[:, None])[:, 0]
-    viol = torch.where(x >= 0, matched_slack - slack.amin(1), 0.0)
+    viol = torch.where(x_loc >= 0, matched_slack - slack.amin(1), 0.0)
     if eps is None:
         eps = 8.0 * torch.finfo(C.dtype).eps
-        threshold = eps * (1.0 + C.abs().max())
+        threshold = eps * (1.0 + part.max(C.abs().max()))
     else:
         threshold = torch.tensor(eps, dtype=C.dtype, device=C.device)
-    bad = viol > threshold
+    bad = part.gather(viol > threshold)
     x_new = torch.where(bad, -1, x)
     y_new = torch.full((n + 1,), -1, dtype=INT, device=C.device).scatter_reduce_(
         0, torch.where(x_new >= 0, x_new, n), torch.where(x_new >= 0, iota, -1), "amax"
     )[:n]
-    return augment_all_sweep(C, Matching(x_new, y_new, v), stats)
+    return augment_all_sweep(C, Matching(x_new, y_new, v), stats, part)
 
 
 def lapjv_single(

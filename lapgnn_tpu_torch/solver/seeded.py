@@ -16,6 +16,12 @@ PyTorch, as they are plain XLA in the JAX version.
 chooses the cold fallback, where the JAX version computes it always and
 selects (seeded.py:335-340); the result is identical.  The batch solves
 instance by instance, as the JAX serving program does (pipeline.py:473).
+
+Each phase takes the row partition ``part`` of ``solver.jv``: C may be one
+rank's block of rows (``parallel.sharded.ShardedRows``), while the matching
+(x, y) and the duals v are held whole on every rank.  The greedy and ARR
+rounds therefore update x from the column-side winners (each won column's
+new row), which every rank holds, instead of from the row-side flags.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.cuda.twomin import two_min
+from ..ops.partition import WHOLE, RowPartition
 from .jv import (
     INT,
     Matching,
@@ -64,14 +71,18 @@ def _as_dtype(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
-def _hash_scores(n: int, rnd: int, device=None) -> torch.Tensor:
+def _hash_scores(
+    n: int, rnd: int, device=None, row0: int = 0, rows: Optional[int] = None
+) -> torch.Tensor:
     """Deterministic per-(row, col, round) int32 scores in [0, 2^31 - 2]
     (seeded.py:71): the JAX version's wrapping uint32 arithmetic, emulated in
     int64 with a 32-bit mask after every multiply and add.  Each product
     stays below 2^63: a 32-bit value times a constant below 2^30, or
-    i * 0x9E3779B1 for i < 2^31."""
+    i * 0x9E3779B1 for i < 2^31.  ``row0`` and ``rows`` select the rows
+    [row0, row0 + rows) of the (n, n) scores (default: all)."""
     i = torch.arange(n, dtype=torch.int64, device=device)
-    hi = (i * 0x9E3779B1) & _U32
+    rows_i = i if rows is None else torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
+    hi = (rows_i * 0x9E3779B1) & _U32
     hj = (i * 0x85EBCA77) & _U32
     hr = (rnd * 0xC2B2AE3D) & _U32
     h = (hi[:, None] + hj[None, :] + hr) & _U32
@@ -82,39 +93,48 @@ def _hash_scores(n: int, rnd: int, device=None) -> torch.Tensor:
     return torch.clamp_max(h & 0x7FFFFFFF, 0x7FFFFFFE).to(torch.int32)
 
 
+def _assign_cols(x: torch.Tensor, new_row: torch.Tensor) -> torch.Tensor:
+    """x with x[new_row[j]] = j for every column j with new_row[j] >= 0."""
+    n = x.shape[0]
+    got = new_row >= 0
+    cols = torch.arange(n, dtype=INT, device=x.device)
+    return torch.cat([x, x.new_full((1,), -1)]).scatter_(
+        0, torch.where(got, new_row, n), torch.where(got, cols, -1)
+    )[:n]
+
+
 def greedy_tight_matching(
-    tight: torch.Tensor, stats: Optional[SolveStats] = None
+    tight: torch.Tensor, stats: Optional[SolveStats] = None, part: RowPartition = WHOLE
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Maximal matching on the tight-edge graph by parallel proposal rounds
     (seeded.py:99): every free row proposes its lowest available column in
     round 0 and its lowest-hash one later; each column accepts the lowest
-    proposing row; until a round matches nothing."""
+    proposing row; until a round matches nothing.  ``tight`` holds
+    ``part``'s rows; x and y come back for every row."""
     stats = SolveStats() if stats is None else stats
-    n = tight.shape[-1]
+    n_loc, n = tight.shape
     dev = tight.device
-    iota = torch.arange(n, dtype=INT, device=dev)
-    col_ids = iota.to(torch.int32)[None, :].expand(n, n)
+    rows = torch.arange(part.offset, part.offset + n_loc, dtype=INT, device=dev)
+    col_ids = torch.arange(n, dtype=torch.int32, device=dev)[None, :].expand(n_loc, n)
     x = torch.full((n,), -1, dtype=INT, device=dev)
     y = torch.full((n,), -1, dtype=INT, device=dev)
     rnd, progressed = 0, True
     while progressed:
-        avail = tight & (y < 0)[None, :] & (x < 0)[:, None]
+        avail = tight & (y < 0)[None, :] & (part.local(x) < 0)[:, None]
         has_any = avail.any(1)
-        score = col_ids if rnd == 0 else _hash_scores(n, rnd, dev)
+        score = col_ids if rnd == 0 else _hash_scores(n, rnd, dev, part.offset, n_loc)
         score = torch.where(avail, score, _INT32_MAX)
         prop_j = score.argmin(1)
         prop_j_safe = torch.where(has_any, prop_j, n)
-        winner = torch.full((n + 1,), n, dtype=INT, device=dev).scatter_reduce_(
-            0, prop_j_safe, torch.where(has_any, iota, n), "amin"
-        )
-        won = has_any & (winner[prop_j_safe] == iota)
-        x = torch.where(won, prop_j, x)
-        y_scatter = torch.full((n + 1,), -1, dtype=INT, device=dev).scatter_reduce_(
-            0, torch.where(won, prop_j, n), torch.where(won, iota, -1), "amax"
-        )[:n]
+        winner = part.min(torch.full((n + 1,), n, dtype=INT, device=dev).scatter_reduce_(
+            0, prop_j_safe, torch.where(has_any, rows, n), "amin"
+        ))
+        # each proposed-to column takes its lowest proposing row
+        y_scatter = torch.where(winner < n, winner, -1)[:n]
+        x = _assign_cols(x, y_scatter)
         y = torch.where(y_scatter >= 0, y_scatter, y)
         rnd += 1
-        progressed = stats.item(won.any())
+        progressed = stats.item((y_scatter >= 0).any())
     stats.greedy_rounds += rnd
     return x, y
 
@@ -125,6 +145,7 @@ def jacobi_arr(
     max_rounds: int = 64,
     min_delta: float = 0.0,
     stats: Optional[SolveStats] = None,
+    part: RowPartition = WHOLE,
 ) -> Matching:
     """Parallel (Jacobi) augmenting row reduction, an epsilon = 0 auction
     (seeded.py:163).  Each round every free row bids for its cheapest column
@@ -132,42 +153,32 @@ def jacobi_arr(
     gap (ties to the lowest row), lowers its potential by it and kicks its
     previous owner.  Until a round wins nothing or ``max_rounds``."""
     stats = SolveStats() if stats is None else stats
-    n = C.shape[-1]
+    n_loc, n = C.shape
     dev = C.device
-    iota = torch.arange(n, dtype=INT, device=dev)
-    neg_inf = float("-inf")
+    rows = torch.arange(part.offset, part.offset + n_loc, dtype=INT, device=dev)
     x, y, v = m
     rnd, progressed = 0, True
     while rnd < max_rounds and progressed:
         min1, min2, j1 = two_min(C, v)
         j1 = j1.to(INT)
         delta = min2 - min1
-        bid = (x < 0) & (delta > min_delta) & torch.isfinite(min2)
-        j1_safe = torch.where(bid, j1, n)
-        col_best = torch.full((n + 1,), neg_inf, dtype=C.dtype, device=dev).scatter_reduce_(
-            0, j1_safe, torch.where(bid, delta, neg_inf), "amax"
-        )
-        cand = bid & (delta >= col_best[j1_safe])
-        win_row = torch.full((n + 1,), n, dtype=INT, device=dev).scatter_reduce_(
-            0, torch.where(cand, j1, n), torch.where(cand, iota, n), "amin"
-        )
-        won = cand & (win_row[j1_safe] == iota)
-        j1_won = torch.where(won, j1, n)
-        dv = torch.zeros((n + 1,), dtype=C.dtype, device=dev).scatter_reduce_(
-            0, j1_won, torch.where(won, delta, 0.0), "amax"
-        )
-        v = v - dv[:n]
-        new_owner = torch.full((n + 1,), -1, dtype=INT, device=dev).scatter_reduce_(
-            0, j1_won, torch.where(won, iota, -1), "amax"
-        )[:n]
+        bid = (part.local(x) < 0) & (delta > min_delta) & torch.isfinite(min2)
+        col_best, win_row = part.best_bid(torch.where(bid, j1, n), delta, rows, n)
+        win_row = win_row[:n]
+        # a column bid for goes to its largest gap, the lowest row on a tie,
+        # and drops its potential by that gap where it is positive
+        got = win_row < n
+        v = v - torch.where(got & (col_best[:n] > 0), col_best[:n], 0.0)
+        new_owner = torch.where(got, win_row, -1)
         kicked = torch.where(new_owner >= 0, y, -1)
         x = torch.cat([x, x.new_full((1,), -1)]).index_fill_(
             0, torch.where(kicked >= 0, kicked, n), -1
         )[:n]
-        x = torch.where(won, j1, x)
+        # each winner was free, so it is no kicked row
+        x = _assign_cols(x, new_owner)
         y = torch.where(new_owner >= 0, new_owner, y)
         rnd += 1
-        progressed = stats.item(won.any())
+        progressed = stats.item((new_owner >= 0).any())
     stats.arr_rounds += rnd
     return Matching(x, y, v)
 
@@ -192,6 +203,7 @@ def lapjv_seeded_single(
     free_rows_frac: float = 0.5,
     arr_rounds: Optional[int] = None,
     stats: Optional[SolveStats] = None,
+    part: RowPartition = WHOLE,
 ) -> SeededResult:
     """Warm-started dense JV solve of one square instance (seeded.py:260).
 
@@ -200,7 +212,9 @@ def lapjv_seeded_single(
     ``free_rows_frac`` of the rows free), "both" (both say so) or "never".
     ``arr_rounds`` overrides the ARR round cap max(64, n // 32).  With
     ``stats.timed`` the stages are timed as ``project_tighten``, ``greedy``,
-    ``arr``, ``augment`` and ``polish``."""
+    ``arr``, ``augment`` and ``polish``.  With a row-sharded ``part``, C and
+    ``u_seed`` hold the rank's rows and ``v_seed`` every column; the result
+    is the whole matching on every rank."""
     if gate not in ("density", "free_rows", "both", "never"):
         raise ValueError(f"unknown gate '{gate}'")
     stats = SolveStats() if stats is None else stats
@@ -213,15 +227,15 @@ def lapjv_seeded_single(
         v = v_seed.to(C.dtype)
         for _ in range(project_rounds):
             u = torch.minimum(u, (C - v[None, :]).amin(1))
-            v = torch.minimum(v, (C - u[:, None]).amin(0))
+            v = torch.minimum(v, part.min_trick(C, u))
         u = (C - v[None, :]).amin(1)
         tight = (C - u[:, None] - v[None, :]).abs() <= tight_eps
 
     with stats.stage("greedy", dev):
-        x, y = greedy_tight_matching(tight, stats)
+        x, y = greedy_tight_matching(tight, stats, part)
         # the JAX version counts in float32, exact below 2^24 and far above
         # both thresholds there
-        n_tight, n_free = stats.to_host(torch.stack([tight.sum(), (x < 0).sum()]))
+        n_tight, n_free = stats.to_host(torch.stack([part.sum(tight.sum()), (x < 0).sum()]))
     density_bad = n_tight < _as_dtype(FALLBACK_DENSITY * n, torch.float32)
     free_bad = n_free > _as_dtype(free_rows_frac * n, torch.float32)
     use_fallback = {
@@ -230,19 +244,19 @@ def lapjv_seeded_single(
         "both": density_bad and free_bad,
         "never": False,
     }[gate]
-    m = column_reduction(C) if use_fallback else Matching(x, y, v)
+    m = column_reduction(C, part) if use_fallback else Matching(x, y, v)
 
     rounds = arr_rounds if arr_rounds is not None else max(64, n // 32)
     with stats.stage("arr", dev):
-        m = jacobi_arr(C, m, max_rounds=rounds, stats=stats)
+        m = jacobi_arr(C, m, max_rounds=rounds, stats=stats, part=part)
     with stats.stage("augment", dev):
-        m = augment_all_sweep(C, m, stats)
+        m = augment_all_sweep(C, m, stats, part)
     with stats.stage("polish", dev):
-        m = polish_matching(C, m, stats=stats)
+        m = polish_matching(C, m, stats=stats, part=part)
     return SeededResult(
         col_of_row=m.col_of_row,
         row_of_col=m.row_of_col,
-        cost=matching_cost(C, m.col_of_row),
+        cost=matching_cost(C, m.col_of_row, part),
         used_fallback=torch.full((), use_fallback, dtype=torch.bool, device=dev),
         v=m.v,
     )

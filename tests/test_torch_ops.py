@@ -281,9 +281,9 @@ def test_sinkhorn_cold_finish_rung_at_large_n(monkeypatch):
     seen = []
     real = tsink._robust_scale
 
-    def spy(c):
+    def spy(c, *args):
         seen.append(c.shape[-1])
-        return real(c)
+        return real(c, *args)
 
     monkeypatch.setattr(tsink, "COLD_FINISH_MIN_N", 32)
     monkeypatch.setattr(tsink, "_robust_scale", spy)

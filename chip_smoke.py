@@ -2,15 +2,16 @@
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0]
-                          [--phases build,compare,times,stream,train,eval,dual_train,front_ends,parallel]
+                          [--phases build,compare,times,stream,train,eval,dual_train,front_ends,parallel,parallel_train]
 
 ``--phases`` runs a subset (for a first look at a changed kernel,
 ``build,stream`` after a change to the transfer layer, ``build,train`` after
 one to the training path, ``build,eval`` after one to the evaluation path,
 ``build,dual_train`` after one to DualGNN training, ``build,front_ends``
 after one to the solver front ends or the benchmark CLIs, ``build,parallel``
-after one to the parallel package) and then prints no ``ok`` line; with no
-arguments every phase runs.
+after one to the parallel package's serving, ``build,parallel_train`` after
+one to its training) and then prints no ``ok`` line; with no arguments every
+phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -154,7 +155,23 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      ``--solve``; its results in the phase's JSON line, its launches apart
      from the sharded path's) and the Dijkstra
      augmenters on the card at n = 128 against the CPU.  At most 45 s.
- 13. Times: each kernel and its plain version at n = 2048 and 8192 beside
+ 13. Parallel train: training under a mesh at full width.  World 1 under
+     NCCL: the unsharded references (one_gnn_default's trainer step at
+     (32, 512); dual_gnn_r5's step, its dense features, model, surrogate
+     loss and update, at (2, 1024), with its peak memory; r5's dense forward
+     and min-trick at n = 2048), then ``make_dp_train_step`` and
+     ``make_sharded_dual_train_step`` on 1 x 1 meshes held to them.  Two
+     gloo ranks on the one card: the DP step at data 2 x model 1 and 1 x 2,
+     the dual step on 2 x 1 and 1 x 2 meshes, ``make_sharded_dual_predict``
+     on 2 x 1; losses within 1e-5 relative, gradients within
+     1e-4 max|g| + 1e-7, parameters within 1e-4 max|dp| + 1e-7 (entries whose
+     gradient is at rounding level held to one AdamW step), the ranks'
+     parameters bit-equal, u and v within 1e-5 max|ref| + 1e-6.  Every K1,
+     K2 and greedy call held against its plain version; every dual step's
+     collective log held to ``assert_no_edge_tensor_gather``; ms a step,
+     each rank's peak memory at (2, 1024) beside the unsharded step's, the
+     collectives a step and the largest.  At most 60 s.
+ 14. Times: each kernel and its plain version at n = 2048 and 8192 beside
      its bound (the larger of the bytes it must move over the HBM rate and
      the float32 operations over the card's float32 rate).  Median of
      CUDA-event timings, all reps queued behind a spin kernel so the host's
@@ -2863,6 +2880,459 @@ def phase_parallel(torch, seed):
     return {"launches": launches, "max_abs_err": errs}
 
 
+# The parallel_train phase: training under a mesh at full width.  OneGNN at
+# one_gnn_default's width on a (32, 512) batch, the DualGNN at dual_gnn_r5's
+# on (2, 1024) and its sharded predict at n = 2048; world 1 under NCCL, then
+# two gloo ranks on the one card.  Dropout 0, so that the sharded and
+# unsharded steps draw the same (no) masks.
+PT_DP = (32, 512)
+PT_DUAL = (2, 1024)
+PT_PREDICT_N = 2048
+PT_DP_MESHES = ((2, 1), (1, 2))
+PT_DUAL_MESHES = ((2, 1), (1, 2))
+PT_LR = 1e-3
+PT_LOSS_RTOL = 1e-5
+PT_PREDICT_RTOL = 1e-5  # of max|u| (max|v|), and 1e-6 absolute
+# OneGNN centres u, so a shift of its head's last bias changes nothing: the
+# gradient there is 0, and what either step computes is rounding, which can
+# be as large as a trained model's other gradients.  It is held to one AdamW
+# step, not compared.
+PT_GAUGE_FREE = ("row_out.3.bias",)
+PARALLEL_TRAIN_PHASE_LIMIT_S = 60.0
+
+
+def _pt_inputs(torch, seed, device):
+    """The phase's batches on ``device``, made with numpy from ``seed``; the
+    target duals the rank-1 seed of each instance (any target does for
+    parity)."""
+    import numpy as np
+
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+    from lapgnn_tpu_torch.ops.rank1 import rank1_duals
+
+    rng = np.random.default_rng(seed + 41)
+    fams = ("uniform", "noisy_linear", "block")
+
+    def batch(B, n):
+        C = np.stack([FAMILIES[fams[k % 3]](n, rng) for k in range(B)]).astype(np.float32)
+        C = torch.from_numpy(C).to(device)
+        with torch.no_grad():
+            return C, rank1_duals(C)[0].contiguous()
+
+    dp, dual = batch(*PT_DP), batch(*PT_DUAL)
+    pred = torch.from_numpy(FAMILIES["uniform"](PT_PREDICT_N, rng)[None].astype(np.float32)).to(device)
+    return {"dp": dp, "dual": dual, "predict": pred}
+
+
+def _pt_one_gnn(torch, device):
+    """one_gnn_default at dropout 0 and an optimizer over every parameter
+    its step trains, with the optimizer's step wrapped to keep the
+    gradients it is handed."""
+    from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint, params_from_flax
+    from lapgnn_tpu_torch.train.schedule import make_optimizer
+    from lapgnn_tpu_torch.train.trainer import trainable_parameters
+
+    params, meta, _ = load_checkpoint(CHECKPOINT)
+    model = build_model_from_meta({**meta, "dropout": 0.0})
+    model.load_state_dict(params_from_flax(params))
+    model.to(device)
+    opt = _kept(make_optimizer(trainable_parameters(model, True), PT_LR))
+    opt.names = [n for n, _ in model.named_parameters()]
+    return model, opt
+
+
+def _pt_dual_gnn(torch, device):
+    from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint, params_from_flax
+    from lapgnn_tpu_torch.train.schedule import make_optimizer
+
+    params, meta, _ = load_checkpoint(DUAL_CHECKPOINT)
+    model = build_model_from_meta({**meta, "dropout": 0.0})
+    model.load_state_dict(params_from_flax(params))
+    model.to(device)
+    opt = _kept(make_optimizer(list(model.parameters()), PT_LR))
+    opt.names = [n for n, _ in model.named_parameters()]
+    return model, opt
+
+
+def _kept(opt):
+    """The optimizer with ``opt.seen`` holding, on the CPU, the gradients
+    of its first step."""
+    opt.seen = []
+    real = opt.step
+
+    def step(grads):
+        if not opt.seen:
+            opt.seen.append([g.detach().to("cpu", copy=True) for g in grads])
+        real(grads)
+
+    opt.step = step
+    return opt
+
+
+def _pt_result(torch, metrics, opt, old):
+    return {"loss": float(metrics["loss"]), "grads": opt.seen[0], "names": opt.names,
+            "params": [p.detach().to("cpu", copy=True) for p in opt.params], "old": old}
+
+
+def _plain_dual_step(torch, model, opt, cost, u):
+    """``make_sharded_dual_train_step``'s step on the whole batch: the dense
+    features, the model, ``dual_gnn_loss(include_primal=False)`` (the loss
+    of JAX's sharded step), its gradient and the update."""
+    from lapgnn_tpu_torch.ops.features import graph_features
+    from lapgnn_tpu_torch.train.loss import dual_gnn_loss
+
+    with torch.no_grad():
+        gf = graph_features(cost)
+    preds = model(gf.edge_feat, gf.row_feat, gf.col_feat)
+    loss, _ = dual_gnn_loss(cost, preds, normalize_gap=True, clip_sentinels=True, u_target=u,
+                            include_primal=False)
+    grads = torch.autograd.grad(loss, opt.params, allow_unused=True, materialize_grads=True)
+    opt.step(grads)
+    return {"loss": loss.detach()}
+
+
+def _plain_dual_predict(torch, model, cost):
+    from lapgnn_tpu_torch.ops.features import graph_features
+
+    with torch.inference_mode():
+        gf = graph_features(cost)
+        u = model(gf.edge_feat, gf.row_feat, gf.col_feat)["u"]
+        return u.cpu(), (cost - u[..., :, None]).amin(-2).cpu()
+
+
+def _pt_against(torch, got, ref, what):
+    """The sharded step's loss, gradients and updated parameters against the
+    unsharded step's: loss within PT_LOSS_RTOL, each gradient within
+    1e-4 max|g| + 1e-7, each parameter within 1e-4 max|dp| + 1e-7.  Where
+    the reference gradient is itself within the gradient's tolerance of 0
+    its sign is not determined, and the first AdamW step moves the entry lr
+    times that sign: those entries, and the parameters of PT_GAUGE_FREE,
+    are held to a step of at most lr."""
+    rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    held = [k not in PT_GAUGE_FREE for k in ref["names"]]
+    g_max = max(float(g.abs().max()) for g, h in zip(ref["grads"], held) if h)
+    d_max = max(float((p - o).abs().max()) for p, o in zip(ref["params"], ref["old"]))
+    g_tol = 1e-4 * g_max + 1e-7
+    g_err = max(float((a - b).abs().max())
+                for a, b, h in zip(got["grads"], ref["grads"], held) if h)
+    p_err, free, free_step = 0.0, 0, 0.0
+    for p, pr, o, gr, h in zip(got["params"], ref["params"], ref["old"], ref["grads"], held):
+        sign_free = gr.abs() <= g_tol if h else torch.ones_like(gr, dtype=torch.bool)
+        free += int(sign_free.sum())
+        if sign_free.any():
+            free_step = max(free_step, float((p - o).abs()[sign_free].max()))
+        if (~sign_free).any():
+            p_err = max(p_err, float((p - pr).abs()[~sign_free].max()))
+    out = {"loss_rel_err": rel, "grad_max_abs_err": g_err, "grad_tol": g_tol,
+           "param_max_abs_err": p_err, "param_tol": 1e-4 * d_max + 1e-7,
+           "sign_free_grad_entries": free, "their_largest_step": free_step}
+    if (rel > PT_LOSS_RTOL or g_err > g_tol or p_err > out["param_tol"]
+            or free_step > PT_LR * (1 + 1e-3)):
+        raise AssertionError(f"{what}: sharded against unsharded {out}")
+    return out
+
+
+def _pt_collectives(log):
+    return {"collectives": len(log), "largest": max(e[1] for e in log),
+            "largest_op": max(log, key=lambda e: e[1])[0],
+            "backward": sum(e[0].endswith(".backward") for e in log)}
+
+
+def _pt_dp_step(torch, mesh, inputs, reps):
+    """One data-parallel step from one_gnn_default's weights on this rank's
+    block, then ``reps`` more timed; the first step's result."""
+    from lapgnn_tpu_torch.parallel import NamedSharding, P, batch_sharding, make_dp_train_step
+
+    model, opt = _pt_one_gnn(torch, mesh.device)
+    old = [p.detach().to("cpu", copy=True) for p in opt.params]
+    C, u = inputs["dp"]
+    cost = batch_sharding(mesh, shard_n=True).local(C)
+    u_blk = NamedSharding(mesh, P("data", "model")).local(u)
+    step = make_dp_train_step(model, opt, mesh, use_cost=True, shard_rows=True)
+    mesh.log.clear()
+    m = step(cost, u_blk)
+    torch.cuda.synchronize()
+    res = {**_pt_result(torch, m, opt, old), **_pt_collectives(mesh.log)}
+    res["step_ms"] = _ms_host(torch, lambda: step(cost, u_blk), reps)
+    return res
+
+
+def _pt_dual_step(torch, mesh, inputs, reps):
+    """One 2-D edge-partitioned step from r5's weights on this rank's tile,
+    its peak memory, its log held to ``assert_no_edge_tensor_gather``; then
+    ``reps`` more timed."""
+    from lapgnn_tpu_torch.parallel import assert_no_edge_tensor_gather, make_sharded_dual_train_step
+    from lapgnn_tpu_torch.parallel.dual import local_tile
+
+    model, opt = _pt_dual_gnn(torch, mesh.device)
+    old = [p.detach().to("cpu", copy=True) for p in opt.params]
+    C, u = inputs["dual"]
+    tile = local_tile(C, mesh).contiguous()
+    rows = tile.shape[-2]
+    u_rows = u[:, mesh.coordinate("row") * rows:(mesh.coordinate("row") + 1) * rows]
+    step = make_sharded_dual_train_step(model, opt, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.log.clear()
+    m = step(tile, u_rows)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    assert_no_edge_tensor_gather(mesh.log, C.shape[-1], batch=C.shape[0])
+    res = {**_pt_result(torch, m, opt, old), **_pt_collectives(mesh.log),
+           "peak_memory_bytes": peak, "edge_gather_check": "held"}
+    res["step_ms"] = _ms_host(torch, lambda: step(tile, u_rows), reps)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def _pt_kernel_calls():
+    """``_kernel_calls`` and every greedy call, with their arguments."""
+    import lapgnn_tpu_torch.train.loss as loss_mod
+
+    greedy = []
+    with _kernel_calls() as calls, _wrapped(loss_mod, "greedy_total", _capture(greedy, clone=True)):
+        calls["greedy_total"] = greedy
+        yield calls
+
+
+def _pt_hold(torch, calls, what):
+    """The calls of ``_pt_kernel_calls`` against their plain versions:
+    {kernel: (calls, largest difference)}."""
+    from lapgnn_tpu_torch.ops.cuda.greedy import greedy_total_plain
+
+    held = _hold_kernel_calls(torch, calls, what)
+    err = 0.0
+    for i, (args, got) in enumerate(calls["greedy_total"]):
+        want = greedy_total_plain(*args)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"greedy kernel differs from its plain loop ({what}, call {i})")
+        err = max(err, _max_abs_err(torch, got, want))
+    held["greedy_total"] = (len(calls["greedy_total"]), err)
+    return held
+
+
+def _parallel_train_rank(rank, device, seed, out_dir):
+    """One of the two gloo ranks on the one card: the DP step at data 2 x
+    model 1 and 1 x 2, the sharded dual step on the 2 x 1 and 1 x 2 meshes,
+    the sharded dual predict (2 x 1, both v modes); every K1 / K2 / greedy
+    call held against its plain version.  It waits for ``out_dir/go``, so
+    that the parent's unsharded references have the card to themselves."""
+    import torch
+
+    from lapgnn_tpu_torch.device import resolve_device
+    from lapgnn_tpu_torch.parallel import dual_mesh, make_mesh, make_sharded_dual_predict
+    from lapgnn_tpu_torch.parallel.dual import local_tile
+
+    torch.cuda.set_device(0)
+    dev = resolve_device(device)
+    _load_kernels()
+    _wait_for(Path(out_dir) / "go")
+    inputs = torch.load(Path(out_dir) / "inputs.pt")
+    inputs = {k: tuple(t.to(dev) for t in v) if isinstance(v, tuple) else v.to(dev)
+              for k, v in inputs.items()}
+    res = {"dp": {}, "dual": {}}
+    _zero_launches()
+    with _pt_kernel_calls() as calls:
+        for data, model in PT_DP_MESHES:
+            mesh = make_mesh(data, model, device=device)
+            res["dp"][f"{data}x{model}"] = _pt_dp_step(torch, mesh, inputs, 2)
+        for row, col in PT_DUAL_MESHES:
+            mesh = dual_mesh(row, col, device=device)
+            res["dual"][f"{row}x{col}"] = _pt_dual_step(torch, mesh, inputs, 1)
+        mesh = dual_mesh(2, 1, device=device)
+        model, _ = _pt_dual_gnn(torch, mesh.device)
+        tile = local_tile(inputs["predict"], mesh)
+        mesh.log.clear()
+        predict = make_sharded_dual_predict(model, mesh)
+        u, v = predict(tile)
+        torch.cuda.synchronize()
+        res["predict"] = {"u": u.cpu(), "v": v.cpu(), **_pt_collectives(mesh.log),
+                          "ms": _ms_host(torch, lambda: predict(tile), 2)}
+        res["predict"]["v_hint_finite"] = bool(torch.isfinite(
+            make_sharded_dual_predict(model, mesh, project=False)(tile)[1]).all())
+        torch.cuda.synchronize()
+    res["launches"] = _read_launches()
+    res["held"] = _pt_hold(torch, calls, f"parallel_train rank {rank}")
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+
+
+def _pt_world1(torch, seed, inputs):
+    """World 1 under NCCL: the unsharded references of every step, each
+    sharded step on the 1 x 1 mesh against them, the timed steps."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from lapgnn_tpu_torch.device import resolve_device
+    from lapgnn_tpu_torch.parallel import dual_mesh, make_mesh
+    from lapgnn_tpu_torch.parallel.launch import free_port
+    from lapgnn_tpu_torch.train.trainer import make_train_step
+
+    dev = resolve_device("cuda")
+    refs, out = {}, {}
+    # the unsharded OneGNN step (the trainer's) and its time
+    model, opt = _pt_one_gnn(torch, dev)
+    old = [p.detach().to("cpu", copy=True) for p in opt.params]
+    C, u = inputs["dp"]
+    step = make_train_step(model, opt, use_cost=True)
+    m = step(C, u)
+    torch.cuda.synchronize()
+    refs["dp"] = _pt_result(torch, m, opt, old)
+    out["dp_unsharded_step_ms"] = _ms_host(torch, lambda: step(C, u), 2)
+    del model, opt, step
+    # the unsharded dual step at (2, 1024), its peak memory and time
+    model, opt = _pt_dual_gnn(torch, dev)
+    old = [p.detach().to("cpu", copy=True) for p in opt.params]
+    C, u = inputs["dual"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = _plain_dual_step(torch, model, opt, C, u)
+    torch.cuda.synchronize()
+    out["dual_unsharded_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    refs["dual"] = _pt_result(torch, m, opt, old)
+    out["dual_unsharded_step_ms"] = _ms_host(torch, lambda: _plain_dual_step(torch, model, opt, C, u), 1)
+    model.load_state_dict(_pt_dual_gnn(torch, "cpu")[0].state_dict())  # r5's weights again
+    refs["predict"] = _plain_dual_predict(torch, model, inputs["predict"])
+    del model, opt
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        _zero_launches()
+        with _pt_kernel_calls() as calls:
+            mesh = make_mesh(1, 1, device="cuda")
+            dp = _pt_dp_step(torch, mesh, inputs, 2)
+            dual = _pt_dual_step(torch, dual_mesh(1, 1, device="cuda"), inputs, 1)
+        launches = _read_launches()
+        held = _pt_hold(torch, calls, "parallel_train world 1")
+    finally:
+        dist.destroy_process_group()
+    out["dp_1x1"] = {**_pt_against(torch, dp, refs["dp"], "DP step 1 x 1"),
+                     **{k: dp[k] for k in ("step_ms", "collectives", "largest", "largest_op")}}
+    out["dual_1x1"] = {**_pt_against(torch, dual, refs["dual"], "dual step 1 x 1"),
+                       **{k: dual[k] for k in ("step_ms", "collectives", "largest", "largest_op",
+                                               "peak_memory_bytes")}}
+    return refs, out, launches, held
+
+
+def phase_parallel_train(torch, seed):
+    """Training under a mesh on the card at full width: the data-parallel
+    OneGNN step (one_gnn_default: hidden 192, 4 layers, top-k 16, its
+    weights, dropout 0) on a (32, 512) batch, the 2-D edge-partitioned
+    DualGNN step (dual_gnn_r5: hidden 256, 6 layers, 4 heads, its weights,
+    dropout 0) at (2, 1024) and its sharded predict at n = 2048.  World 1
+    under NCCL computes the unsharded references (the trainer's OneGNN step;
+    the dual step's dense features, model, surrogate loss and update; the
+    dense forward and min-trick) and holds the 1 x 1 mesh's steps to them;
+    two gloo ranks on the one card then run the DP step at data 2 x model 1
+    and 1 x 2, the dual step on the 2 x 1 and 1 x 2 meshes and the predict
+    on 2 x 1, each held to the same references: losses within 1e-5
+    relative, gradients within 1e-4 max|g| + 1e-7, parameters within
+    1e-4 max|dp| + 1e-7 (``_pt_against``), u and v within 1e-5 max|ref| +
+    1e-6, the ranks' parameters bit-equal.  Every K1, K2 and greedy call
+    held against its plain version; each dual log held to
+    ``assert_no_edge_tensor_gather``; ms a step, each rank's peak memory at
+    (2, 1024) beside the unsharded step's, the collectives a step and the
+    largest.  Returns each kernel's launches on the path and its largest
+    difference."""
+    import json as _json
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lapgnn_tpu_torch.parallel.launch import spawn_ranks
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        ranks_run = pool.submit(spawn_ranks, _parallel_train_rank, 2, args=("cuda", seed, tmp),
+                                backend="gloo", timeout=300)
+        try:
+            from lapgnn_tpu_torch.device import resolve_device
+
+            inputs = _pt_inputs(torch, seed, resolve_device("cuda"))
+            torch.save({k: tuple(t.cpu() for t in v) if isinstance(v, tuple) else v.cpu()
+                        for k, v in inputs.items()}, Path(tmp) / "inputs.pt")
+            refs, world1, launches, held = _pt_world1(torch, seed, inputs)
+            del inputs
+            torch.cuda.empty_cache()
+        finally:
+            Path(tmp, "go").touch()
+        world1_s = time.perf_counter() - t_phase
+        ranks_run.result()
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+    held = [held]
+    world2 = {}
+    u_ref, v_ref = refs["predict"]
+    for r, res in enumerate(ranks):
+        out = {}
+        for name, got in res["dp"].items():
+            out[f"dp_{name}"] = {**_pt_against(torch, got, refs["dp"], f"DP step {name}, rank {r}"),
+                                 **{k: got[k] for k in ("step_ms", "collectives", "largest",
+                                                        "largest_op")}}
+        for name, got in res["dual"].items():
+            out[f"dual_{name}"] = {**_pt_against(torch, got, refs["dual"], f"dual step {name}, rank {r}"),
+                                   **{k: got[k] for k in ("step_ms", "collectives", "largest",
+                                                          "largest_op", "backward",
+                                                          "peak_memory_bytes", "edge_gather_check")}}
+        p = res["predict"]
+        u_err = float((p["u"] - u_ref).abs().max())
+        v_err = float((p["v"] - v_ref).abs().max())
+        u_tol = PT_PREDICT_RTOL * float(u_ref.abs().max()) + 1e-6
+        v_tol = PT_PREDICT_RTOL * float(v_ref.abs().max()) + 1e-6
+        if u_err > u_tol or v_err > v_tol or not p["v_hint_finite"]:
+            raise AssertionError(f"sharded dual predict, rank {r}: u {u_err} (tol {u_tol}), "
+                                 f"v {v_err} (tol {v_tol}), v_hint finite {p['v_hint_finite']}")
+        out["predict_2x1"] = {"u_max_abs_err": u_err, "v_max_abs_err": v_err, "u_tol": u_tol,
+                              "v_tol": v_tol, **{k: p[k] for k in ("ms", "collectives", "largest")}}
+        for name, count in res["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+        held.append(res["held"])
+        world2[f"rank{r}"] = out
+    for kind in ("dp", "dual"):
+        for name in ranks[0][kind]:
+            if not all(torch.equal(a, b) for a, b in zip(ranks[0][kind][name]["params"],
+                                                         ranks[1][kind][name]["params"])):
+                raise AssertionError(f"{kind} {name}: the ranks' parameters differ after the step")
+    for k in ("col_min", "min_trick", "greedy_total"):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"the parallel_train path launched no {k}: {launches}")
+    errs = {k: max(h[k][1] for h in held) for k in ("col_min", "min_trick", "greedy_total")}
+    calls = {k: sum(h[k][0] for h in held) for k in ("col_min", "min_trick", "greedy_total")}
+    phase_s = time.perf_counter() - t_phase
+    gb = 1e9
+    _emit({"phase": "parallel_train", "dp_batch": PT_DP, "dual_batch": PT_DUAL,
+           "predict_n": PT_PREDICT_N, "checkpoints": ["artifacts/one_gnn_default",
+                                                      "artifacts/dual_gnn_r5"],
+           "world1_nccl": world1, "world2_gloo_one_card": world2, "launches": launches,
+           "kernel_calls_held": calls, "max_abs_err": errs, "world1_seconds": world1_s,
+           "phase_seconds": phase_s})
+    print("parallel_train: " + _json.dumps({
+        "ms_per_step": {"dp_unsharded": world1["dp_unsharded_step_ms"],
+                        "dp_1x1": world1["dp_1x1"]["step_ms"],
+                        **{f"dp_{m}_rank{r}": world2[f"rank{r}"][f"dp_{m}"]["step_ms"]
+                           for r in range(2) for m in ("2x1", "1x2")},
+                        "dual_unsharded": world1["dual_unsharded_step_ms"],
+                        "dual_1x1": world1["dual_1x1"]["step_ms"],
+                        **{f"dual_{m}_rank{r}": world2[f"rank{r}"][f"dual_{m}"]["step_ms"]
+                           for r in range(2) for m in ("2x1", "1x2")}},
+        "dual_peak_memory_gb_at_2x1024": {
+            "unsharded": world1["dual_unsharded_peak_memory_bytes"] / gb,
+            "1x1": world1["dual_1x1"]["peak_memory_bytes"] / gb,
+            **{f"{m}_rank{r}": world2[f"rank{r}"][f"dual_{m}"]["peak_memory_bytes"] / gb
+               for r in range(2) for m in ("2x1", "1x2")}},
+        "collectives_per_step": {f"{kind}_{m}": (world2["rank0"][f"{kind}_{m}"]["collectives"],
+                                                 world2["rank0"][f"{kind}_{m}"]["largest"])
+                                 for kind in ("dp", "dual") for m in ("2x1", "1x2")},
+        "edge_gather_check": "held on every dual step's log",
+    }), flush=True)
+    if phase_s > PARALLEL_TRAIN_PHASE_LIMIT_S:
+        raise AssertionError(f"the parallel_train phase took {phase_s:.1f} s, above "
+                             f"{PARALLEL_TRAIN_PHASE_LIMIT_S} s")
+    return {"launches": launches, "max_abs_err": errs}
+
+
 def _time_ms(torch, fn, reps, flush, queued=True, flush_by_read=False):
     """Median CUDA-event time of ``fn`` with L2 flushed before each launch:
     by ``flush.zero_()``, which leaves L2 full of dirty lines that the timed
@@ -3190,7 +3660,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
                     help="comma-separated subset of build,compare,times,stream,train,eval,"
-                         "dual_train,front_ends,parallel (no ok line)")
+                         "dual_train,front_ends,parallel,parallel_train (no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -3220,7 +3690,8 @@ def main() -> int:
                       "eval": lambda: phase_eval(torch, args.seed),
                       "dual_train": lambda: phase_dual_train(torch, args.seed),
                       "front_ends": lambda: phase_front_ends(torch, args.seed),
-                      "parallel": lambda: phase_parallel(torch, args.seed)}
+                      "parallel": lambda: phase_parallel(torch, args.seed),
+                      "parallel_train": lambda: phase_parallel_train(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
@@ -3248,6 +3719,7 @@ def main() -> int:
         dual = phase_dual_train(torch, args.seed, train_data)
         front = phase_front_ends(torch, args.seed)
         par = phase_parallel(torch, args.seed)
+        par_train = phase_parallel_train(torch, args.seed)
         times = phase_times(torch, args.seed)
     except Exception:
         traceback.print_exc()
@@ -3264,11 +3736,13 @@ def main() -> int:
             kernels.append({"name": kname, **info, **train,
                             "max_abs_err": max(errs[kname], train["max_abs_err"],
                                                evaluated["max_abs_err"][kname],
-                                               dual["max_abs_err"]),
+                                               dual["max_abs_err"],
+                                               par_train["max_abs_err"][kname]),
                             "launches_eval": evaluated["launches"][kname],
                             "launches_dual_train": dual["launches"][kname],
                             "launches_front_ends": front["launches"][kname],
                             "launches_parallel": par["launches"][kname],
+                            "launches_parallel_train": par_train["launches"][kname],
                             **{f"at_{k}_dual_train": v for k, v in dual["greedy"].items()},
                             "card": card})
             continue
@@ -3280,9 +3754,11 @@ def main() -> int:
             "launches_dual_train": dual["launches"][kname],
             "launches_front_ends": front["launches"][kname],
             "launches_parallel": par["launches"][kname],
+            "launches_parallel_train": par_train["launches"][kname],
             "max_abs_err": max(errs[kname], evaluated["max_abs_err"].get(kname, 0.0),
                                front["max_abs_err"][kname],
-                               par["max_abs_err"].get(kname, 0.0)),
+                               par["max_abs_err"].get(kname, 0.0),
+                               par_train["max_abs_err"].get(kname, 0.0)),
             "n": N_E2E,
             **t[N_E2E],
             "at_n_8192": t[8192],

@@ -32,6 +32,7 @@ __all__ = [
     "generate_hard_random_costs",
     "generate_planted_optimum_instance",
     "FAMILIES",
+    "SYNTHETIC_FAMILIES",
 ]
 
 # Sentinel cost for forbidden edges in the "sparse" benchmark family
@@ -245,3 +246,5 @@ FAMILIES: Dict[str, Callable[[int, np.random.Generator], np.ndarray]] = {
     "tie": _fam_tie,
     "sparse": _fam_sparse,
 }
+# the JAX module's second name for the registry
+SYNTHETIC_FAMILIES = FAMILIES

@@ -20,6 +20,20 @@ ways.  Dropout runs only when the caller passes a ``torch.Generator``, as in
 ``models.one_gnn``; each layer draws its masks from a generator seeded by one
 draw from the caller's, so a rematerialised layer redraws the same masks.
 The input widths are the features': 14 a node, 10 an edge.
+
+``forward(..., part=...)`` runs the model on one tile of a 2-D edge
+partition (``parallel.dual.EdgeTiles``): the edge features of a block of
+rows and a block of columns, the node features of those rows and columns.
+Row embeddings then live with their row block and column embeddings with
+their column block; the edge activations never leave the tile.  Each
+attention direction contracts over the axis that is split: a row's
+softmax maximum and sum, and its message, are the tile's partial ones
+combined over the column blocks (``part.over_cols``), a column's over the
+row blocks; the gauge mean of u is a sum over the row blocks.  A node
+vector that enters the tile's computation goes through ``part.vary_*``, so
+its gradient is summed over the tiles that read it.  Dropout then draws
+the edge masks per tile and the row (column) masks per row (column) block,
+so that every tile of one row block computes its rows alike.
 """
 
 from __future__ import annotations
@@ -110,6 +124,23 @@ class DualLayer(nn.Module):
         msg = torch.einsum("bijh,bjhd->bihd", w, values)
         return msg.reshape(msg.shape[0], msg.shape[1], self.hidden_dim)
 
+    def _tile_attention(self, src, dst, edge, bias, values, generator, vary_recv, vary_send,
+                        combine):
+        """``_attention`` on a tile: the receivers' block against this
+        tile's senders.  ``vary_recv`` hands a receiver vector to the tile,
+        ``vary_send`` a sender vector; ``combine(t, op)`` joins the tile's
+        partial results over the senders' blocks."""
+        score = vary_recv(dst)[:, :, None, :] + vary_send(src)[:, None, :, :] + edge + bias
+        score = F.leaky_relu(score, negative_slope=0.2)
+        top = combine(score.detach().amax(2), "max")
+        top = torch.where(torch.isfinite(top), top, 0.0)
+        ex = torch.exp(score - top[:, :, None, :])
+        w = ex / vary_recv(combine(ex.sum(2), "sum"))[:, :, None, :]
+        w = torch.where(torch.isfinite(w), w, 0.0)
+        w = dropout(w, self.dropout, generator)
+        msg = combine(torch.einsum("bijh,bjhd->bihd", w, vary_send(values)), "sum")
+        return msg.reshape(msg.shape[0], msg.shape[1], self.hidden_dim)
+
     def forward(
         self,
         edge_feat: torch.Tensor,
@@ -117,21 +148,31 @@ class DualLayer(nn.Module):
         col_embed: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         seed: Optional[int] = None,
+        part=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``seed`` seeds this layer's dropout masks; None runs it
-        deterministically."""
-        B, N = row_embed.shape[:2]
+        deterministically.  ``part``: the edge partition of a tile (no
+        mask then)."""
+        B, N, M = edge_feat.shape[:3]
         H = self.heads
-        generator = None if seed is None else torch.Generator(edge_feat.device).manual_seed(seed)
-        # one name for every stage, so that each (B, N, N, ·) activation is
+        if seed is None:
+            g_edge = g_row = g_col = None
+        elif part is None:
+            g_edge = g_row = g_col = torch.Generator(edge_feat.device).manual_seed(seed)
+        else:
+            if mask is not None:
+                raise ValueError("a tile takes no mask")
+            g_edge, g_row, g_col = (torch.Generator(edge_feat.device).manual_seed(s)
+                                    for s in part.dropout_seeds(seed))
+        # one name for every stage, so that each (B, N, M, ·) activation is
         # freed as soon as the next exists: at most two of them live at once
-        e = dropout(_gelu(self.edge_fc1(edge_feat)), self.dropout, generator)
+        e = dropout(_gelu(self.edge_fc1(edge_feat)), self.dropout, g_edge)
         e = self.edge_fc2(e)
         e = _gelu(e)
-        e = self.edge_fc3(e)  # (B, N, N, hidden)
+        e = self.edge_fc3(e)  # (B, N, M, hidden)
         edge_terms = torch.matmul(e.view(-1, self.hidden_dim), self._edge_weight())
         del e
-        edge_terms = edge_terms.view(B, N, N, 2 * H)
+        edge_terms = edge_terms.view(B, N, M, 2 * H)
         r_edge = edge_terms[..., :H]
         c_edge = edge_terms[..., H:].transpose(1, 2)  # "bijhd,hd->bjih"
 
@@ -143,20 +184,30 @@ class DualLayer(nn.Module):
         # rows receive from columns
         r_dst = (rp * self.attn_row[:, 0]).sum(-1)
         r_src = (cp * self.attn_row[:, 1]).sum(-1)
-        row_message = self._attention(
-            r_src, r_dst, r_edge, self.attn_row_bias, cv, mask, generator
-        )
         # columns receive from rows, over the transposed edge term
         c_dst = (cp * self.attn_col[:, 0]).sum(-1)
         c_src = (rp * self.attn_col[:, 1]).sum(-1)
-        col_message = self._attention(
-            c_src, c_dst, c_edge, self.attn_col_bias, rv, mask, generator
-        )
+        if part is None:
+            row_message = self._attention(
+                r_src, r_dst, r_edge, self.attn_row_bias, cv, mask, g_edge
+            )
+            col_message = self._attention(
+                c_src, c_dst, c_edge, self.attn_col_bias, rv, mask, g_edge
+            )
+        else:
+            row_message = self._tile_attention(
+                r_src, r_dst, r_edge, self.attn_row_bias, cv, g_edge,
+                part.vary_cols, part.vary_rows, part.over_cols,
+            )
+            col_message = self._tile_attention(
+                c_src, c_dst, c_edge, self.attn_col_bias, rv, g_edge,
+                part.vary_rows, part.vary_cols, part.over_rows,
+            )
 
         ru = dropout(_gelu(self.row_update(torch.cat([row_embed, row_message], -1))),
-                     self.dropout, generator)
+                     self.dropout, g_row)
         cu = dropout(_gelu(self.col_update(torch.cat([col_embed, col_message], -1))),
-                     self.dropout, generator)
+                     self.dropout, g_col)
         return self.row_norm(row_embed + ru), self.col_norm(col_embed + cu)
 
 
@@ -170,7 +221,12 @@ class DualGNN(nn.Module):
 
     ``remat=True`` recomputes each layer's O(n²·hidden) activations in the
     backward pass (``torch.utils.checkpoint``, non-reentrant) instead of
-    storing them; the outputs are the same.
+    storing them; the outputs are the same.  Under ``part`` the recomputed
+    layer makes its collectives again, in the order of the forward, on
+    every rank alike.
+
+    ``part`` (a tile of ``parallel.dual.EdgeTiles``): the inputs are the
+    tile's, and u comes back for its rows, v_hint for its columns.
     """
 
     def __init__(
@@ -207,6 +263,7 @@ class DualGNN(nn.Module):
         col_feat: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        part=None,
     ) -> dict:
         if edge_feat.ndim != 4:
             raise ValueError("edge_feat must be (batch, n, n, F)")
@@ -217,7 +274,7 @@ class DualGNN(nn.Module):
             if generator is not None and self.dropout > 0.0:
                 seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                          device=generator.device).item())
-            args = (edge_feat, row_embed, col_embed, mask, seed)
+            args = (edge_feat, row_embed, col_embed, mask, seed, part)
             if self.remat and torch.is_grad_enabled():
                 row_embed, col_embed = checkpoint(layer, *args, use_reentrant=False)
             else:
@@ -225,9 +282,15 @@ class DualGNN(nn.Module):
 
         u = self.row_out(row_embed)[..., 0]
         v_hint = self.col_out(col_embed)[..., 0]
-        mean_u = u.mean(-1, keepdim=True)
-        u = u - mean_u
-        v_hint = v_hint + mean_u
+        if part is None:
+            mean_u = u.mean(-1, keepdim=True)
+            u = u - mean_u
+            v_hint = v_hint + mean_u
+        else:
+            rows, _ = part.whole_shape(edge_feat[..., 0])
+            mean_u = part.over_rows(u.sum(-1, keepdim=True)) / rows
+            u = u - part.vary_rows(mean_u)
+            v_hint = v_hint + part.vary_cols(mean_u)
         if mask is not None:
             u = torch.where(mask, u, 0.0)
             v_hint = torch.where(mask, v_hint, 0.0)

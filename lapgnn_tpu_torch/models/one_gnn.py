@@ -101,7 +101,9 @@ class OneGNN(nn.Module):
     When the rows are one rank's block of a row-sharded instance,
     ``row_reduce(t, op)`` combines a partial reduction ``t`` over the rows
     of every rank (``op`` "sum" or "max"); the gauge and the pools are then
-    taken over every row.  ``topk_impl="iter"`` takes the top k by k
+    taken over every row.  Under autograd the combined value is handed back
+    to this rank's rows, so its gradient is the SUM of the ranks'
+    (``parallel.sharded.ShardedRows.reduce``).  ``topk_impl="iter"`` takes the top k by k
     rounds of argmin instead of ``torch.topk`` (the JAX package's form for a
     row-sharded cost); the values, and so the output, are the same.
     """

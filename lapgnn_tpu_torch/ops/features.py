@@ -15,7 +15,7 @@ sort-based, as in the JAX package, which has no Pallas kernel for them.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -247,6 +247,7 @@ def graph_features(
     u: Optional[torch.Tensor] = None,
     constrain_rows: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     constrain_cols: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    offsets: Tuple[int, int] = (0, 0),
 ) -> GraphFeatures:
     """Dense bipartite graph features for DualGNN: (n, n) or (B, n, n).
 
@@ -258,29 +259,38 @@ def graph_features(
     ``include_reduced_cost`` and ``u`` are given (zeros otherwise).
 
     ``constrain_rows`` / ``constrain_cols`` are the JAX function's sharding
-    hooks, the identity on one device; when given, the row (column)
-    statistics read ``constrain_rows(C)`` (``constrain_cols(C)``).  Memory:
-    the edge tensor is B·n²·10 float32, 160 MiB at n = 2048."""
+    hooks, the identity on one device.  When C is a tile of the matrix (a
+    block of its rows and of its columns, at ``offsets``: its first row and
+    column), ``constrain_rows(C)`` returns every column of the tile's rows
+    and ``constrain_cols(C)`` every row of its columns (``parallel.dual``
+    gathers them); the row and column statistics read those, and the
+    features returned are the tile's: its rows', its columns' and its
+    entries'.  Memory: the edge tensor is B·n²·10 float32, 160 MiB at
+    n = 2048."""
     squeeze = C.ndim == 2
     if squeeze:
         C = C[None]
-    B, n, _ = C.shape
+    B, n, m = C.shape
     Cf = C.to(torch.float32)
     Cr = constrain_rows(Cf) if constrain_rows is not None else Cf
     Cc = constrain_cols(Cf) if constrain_cols is not None else Cf
+    row0, col0 = offsets
+    n_cols, n_rows = Cr.shape[-1], Cc.shape[-2]
 
     r_mn, r_mx, r_mean, r_std, r_med, r_mad, r_ent = _axis_stats(Cr, dim=-1)
     c_mn, c_mx, c_mean, c_std, c_med, c_mad, c_ent = _axis_stats(Cc, dim=-2)
 
     scaled_cost = (Cf - r_med[..., :, None]) / r_mad[..., :, None]
-    row_rank = _normalized_ranks(Cr, dim=-1)
-    col_rank = _normalized_ranks(Cc, dim=-2)
+    row_rank = _normalized_ranks(Cr, dim=-1).narrow(-1, col0, m)
+    col_rank = _normalized_ranks(Cc, dim=-2).narrow(-2, row0, n)
     row_gap = Cf - r_mn[..., :, None]
     col_gap = Cf - c_mn[..., None, :]
-    row_tie = _exact_div((row_gap <= TAU).to(torch.float32).sum(-1), max(1, n))
-    col_tie = _exact_div((col_gap <= TAU).to(torch.float32).sum(-2), max(1, n))
+    row_tie = _exact_div(((Cr - r_mn[..., :, None]) <= TAU).to(torch.float32).sum(-1), max(1, n_cols))
+    col_tie = _exact_div(((Cc - c_mn[..., None, :]) <= TAU).to(torch.float32).sum(-2), max(1, n_rows))
 
     if include_reduced_cost and u is not None:
+        if (n, m) != (n_rows, n_cols):
+            raise ValueError("the reduced-cost channel needs the whole matrix, not a tile")
         uf = u.to(torch.float32)
         if uf.ndim == 1:
             uf = uf[None]
@@ -296,21 +306,23 @@ def graph_features(
             col_rank,
             row_gap,
             col_gap,
-            row_tie[..., :, None].expand(B, n, n),
-            col_tie[..., None, :].expand(B, n, n),
-            r_ent[..., :, None].expand(B, n, n),
-            c_ent[..., None, :].expand(B, n, n),
+            row_tie[..., :, None].expand(B, n, m),
+            col_tie[..., None, :].expand(B, n, m),
+            r_ent[..., :, None].expand(B, n, m),
+            c_ent[..., None, :].expand(B, n, m),
             reduced,
         ],
         dim=-1,
     )
 
-    pos = positional_encodings(n, device=C.device).expand(B, n, 2 * len(POS_FREQS))
+    width = 2 * len(POS_FREQS)
+    row_pos = positional_encodings(n_rows, device=C.device)[row0 : row0 + n].expand(B, n, width)
+    col_pos = positional_encodings(n_cols, device=C.device)[col0 : col0 + m].expand(B, m, width)
     row_feat = torch.cat(
-        [torch.stack([r_mn, r_mx, r_mean, r_std, r_mad, r_ent], dim=-1), pos], dim=-1
+        [torch.stack([r_mn, r_mx, r_mean, r_std, r_mad, r_ent], dim=-1), row_pos], dim=-1
     )
     col_feat = torch.cat(
-        [torch.stack([c_mn, c_mx, c_mean, c_std, c_mad, c_ent], dim=-1), pos], dim=-1
+        [torch.stack([c_mn, c_mx, c_mean, c_std, c_mad, c_ent], dim=-1), col_pos], dim=-1
     )
     if squeeze:
         return GraphFeatures(row_feat[0], col_feat[0], edge_feat[0])

@@ -10,10 +10,13 @@ only, so the port needs nothing of the JAX package):
   * ``oracle_duals_np``: optimal duals with optional Gaussian noise;
   * ``make_feasible_duals_np``: solve, reconstruct, add noise, project;
   * ``check_dual_feasible_np`` / ``check_dual_and_match_np``: raising checks;
-  * ``reduce_costs_np`` and ``normalize01_np``.
-
-The JAX module's ``print_env_summary`` (which names JAX's settings) and
-``affine_invariance_check`` (a solver self-test) are not copied.
+  * ``reduce_costs_np`` and ``normalize01_np``;
+  * ``affine_invariance_check``: a solver self-test, cost(aC + b) against
+    a·cost(C) + b·n;
+  * ``print_env_summary``: the thread and seed settings and the library
+    versions.  Where the JAX module reads ``JAX_PLATFORMS`` this one reads
+    the variables that place the port's work, ``CUDA_VISIBLE_DEVICES`` and
+    ``PYTORCH_CUDA_ALLOC_CONF``, as ``bench.logging_system`` does.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ __all__ = [
     "check_dual_and_match_np",
     "reduce_costs_np",
     "normalize01_np",
+    "affine_invariance_check",
+    "print_env_summary",
 ]
 
 
@@ -186,3 +191,47 @@ def normalize01_np(C: np.ndarray) -> np.ndarray:
     C = np.ascontiguousarray(C, dtype=np.float64)
     mn, mx = float(C.min()), float(C.max())
     return (C - mn) / ((mx - mn) if mx > mn else 1.0)
+
+
+def affine_invariance_check(solve_fn, n: int = 64, trials: int = 3, seed: int = 0) -> bool:
+    """Whether cost(aC + b) == a·cost(C) + b·n over ``trials`` random affine
+    maps of random (n, n) matrices; ``solve_fn(C) -> (rows, cols, cost)``."""
+    rng = np.random.default_rng(seed)
+    ok = True
+    for _ in range(trials):
+        C = rng.uniform(0.0, 1.0, (n, n))
+        _, _, cost = solve_fn(C)
+        a = 10.0 ** rng.uniform(-2, 2)
+        b = float(rng.uniform(-3.0, 3.0))
+        _, _, cost2 = solve_fn(a * C + b)
+        if not np.isclose(cost2, a * cost + b * n, rtol=1e-9, atol=1e-9):
+            ok = False
+    return ok
+
+
+ENV_VARIABLES = (
+    "OMP_NUM_THREADS",
+    "MKL_NUM_THREADS",
+    "OPENBLAS_NUM_THREADS",
+    "NUMEXPR_NUM_THREADS",
+    "CUDA_VISIBLE_DEVICES",
+    "PYTORCH_CUDA_ALLOC_CONF",
+    "PYTHONHASHSEED",
+)
+
+
+def print_env_summary() -> dict:
+    """Print and return the environment's settings that change a run: the
+    variables of ``ENV_VARIABLES`` and the Python, numpy and SciPy
+    versions."""
+    import os
+    import platform
+
+    info = {
+        "env": {k: os.environ.get(k) for k in ENV_VARIABLES},
+        "python": platform.python_version(),
+        "numpy": np.__version__,
+        "scipy": scipy.__version__,
+    }
+    print(f"[env] {info}")
+    return info

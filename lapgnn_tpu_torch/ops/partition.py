@@ -9,6 +9,16 @@ plain reduction, so those functions compute what they always did.
 ``parallel.sharded.ShardedRows`` holds one rank's contiguous block of rows
 and combines the ranks' partial results with collectives, so the same code
 is the row-sharded path.
+
+The training losses (``train.loss``) and the DualGNN take the more general
+``EdgePartition``, of which a row partition is one: a block of the rows
+and of the columns (``parallel.dual.EdgeTiles``, a tile).  Its methods
+name the two matrix axes apart.  ``over_rows`` / ``over_cols`` combine
+partial results taken over this block's rows / columns with the other
+blocks'; ``vary_rows`` / ``vary_cols`` hand a value that every block along
+the row / column split holds alike to this block's own computation (the
+identity forward; ``parallel.collectives.pvary``'s SUM of the gradients
+backward).  For ``WHOLE`` all of them are the plain operations.
 """
 
 from __future__ import annotations
@@ -17,12 +27,70 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["RowPartition", "WHOLE"]
+__all__ = ["EdgePartition", "RowPartition", "WHOLE"]
 
 
-class RowPartition:
+class EdgePartition:
+    """Every entry of C, held by this process.  Subclasses hold a block of
+    its rows and columns and combine partial results with the others'."""
+
+    def min(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise minimum of the partial results over the partition."""
+        return t
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def whole_shape(self, t: torch.Tensor) -> Tuple[int, int]:
+        """(rows, columns) of the whole matrix of which ``t`` holds this
+        block."""
+        return t.shape[-2], t.shape[-1]
+
+    def over_rows(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Partial results over this block's rows (``op`` "sum", "min" or
+        "max"), combined over every row."""
+        return t
+
+    def over_cols(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Partial results over this block's columns, combined over every
+        column."""
+        return t
+
+    def vary_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A value held alike by the blocks of every row, handed to this
+        block's computation."""
+        return t
+
+    def vary_cols(self, t: torch.Tensor) -> torch.Tensor:
+        """A value held alike by the blocks of every column (a vector of
+        this block's rows), handed to this block's computation."""
+        return t
+
+    def amin_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """``t.amin(-2)`` over every row, with amin's gradient."""
+        return t.amin(-2)
+
+    def amin_cols(self, t: torch.Tensor) -> torch.Tensor:
+        """``t.amin(-1)`` over every column, with amin's gradient."""
+        return t.amin(-1)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every row of a (..., rows, m) block, without gradient."""
+        return t
+
+    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """Mean of a per-instance value over the whole batch."""
+        return t.mean()
+
+
+
+class RowPartition(EdgePartition):
     """Every row of C, held by this process.  Subclasses hold a block of
-    ``rows`` rows starting at ``offset`` out of ``size`` equal blocks."""
+    ``rows`` rows starting at ``offset`` out of ``size`` equal blocks, and
+    every column."""
 
     offset = 0
     size = 1
@@ -33,16 +101,6 @@ class RowPartition:
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """Per-row values of this process's rows -> the values of every row."""
-        return t
-
-    def min(self, t: torch.Tensor) -> torch.Tensor:
-        """Elementwise minimum of the partial results over the partition."""
-        return t
-
-    def max(self, t: torch.Tensor) -> torch.Tensor:
-        return t
-
-    def sum(self, t: torch.Tensor) -> torch.Tensor:
         return t
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:

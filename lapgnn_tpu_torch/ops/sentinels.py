@@ -8,7 +8,7 @@ from typing import Optional
 
 import torch
 
-from .partition import WHOLE, RowPartition
+from .partition import WHOLE, EdgePartition
 
 __all__ = ["BIG", "clip_cost_sentinels"]
 
@@ -20,10 +20,10 @@ def clip_cost_sentinels(
     cost: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     threshold: float = 0.5 * BIG,
-    part: RowPartition = WHOLE,
+    part: EdgePartition = WHOLE,
 ) -> torch.Tensor:
     """Clip sentinels to the per-instance maximum of the real entries (of
-    every row of the row partition ``part``).
+    every block of the partition ``part``).
 
     Clipped <= true entrywise, so dual feasibility on the clipped problem
     implies feasibility on the true one.  An all-sentinel instance stays

@@ -1,13 +1,17 @@
-"""Distribution layer: the (data x model) mesh over ``torch.distributed``
-ranks, its logged collectives, and row-sharded serving.
+"""Distribution layer: the (data x model) and (row x col) meshes over
+``torch.distributed`` ranks, their logged collectives (with gradients),
+row-sharded serving, data-parallel training and the 2-D edge-partitioned
+DualGNN.
 
-Port of ``lapgnn_tpu/parallel``.  Not ported yet (training under a mesh):
-``make_dp_train_step`` and the 2-D edge-partitioned DualGNN of
-``parallel/dual.py`` (``dual_mesh``, ``make_sharded_dual_predict``,
-``make_sharded_dual_train_step``, ``make_sharded_dual_eval_step``,
-``assert_no_edge_tensor_gather``), with ``train_dual_gnn(mesh=)`` and
-``cli/train_dual_gnn.py --mesh-2d`` as their callers."""
+Port of ``lapgnn_tpu/parallel``."""
 
+from .dual import (
+    assert_no_edge_tensor_gather,
+    dual_mesh,
+    make_sharded_dual_eval_step,
+    make_sharded_dual_predict,
+    make_sharded_dual_train_step,
+)
 from .hostmesh import (
     global_batch_from_host_local,
     initialize_distributed,
@@ -15,7 +19,7 @@ from .hostmesh import (
 )
 from .mesh import Mesh, NamedSharding, P, batch_sharding, local_rows, make_mesh, replicated
 from .ring import ring_all_reduce_min, ring_min_trick
-from .sharded import make_sharded_predict, shmap_col_min, shmap_min_trick
+from .sharded import make_dp_train_step, make_sharded_predict, shmap_col_min, shmap_min_trick
 
 __all__ = [
     "Mesh",
@@ -30,7 +34,13 @@ __all__ = [
     "global_batch_from_host_local",
     "ring_all_reduce_min",
     "ring_min_trick",
+    "make_dp_train_step",
     "make_sharded_predict",
     "shmap_col_min",
     "shmap_min_trick",
+    "assert_no_edge_tensor_gather",
+    "dual_mesh",
+    "make_sharded_dual_eval_step",
+    "make_sharded_dual_predict",
+    "make_sharded_dual_train_step",
 ]

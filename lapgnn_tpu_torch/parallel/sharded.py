@@ -1,7 +1,7 @@
-"""Row-sharded serving: the predict path with each cost matrix's rows split
-over the mesh's "model" axis.
+"""Row-sharded serving and data-parallel training: each cost matrix's rows
+split over the mesh's "model" axis, the batch over "data".
 
-Port of ``lapgnn_tpu/parallel/sharded.py`` (its serving half).  Each rank
+Port of ``lapgnn_tpu/parallel/sharded.py``.  Each rank
 holds a contiguous block of n/S rows of each instance of its share of the
 batch, and every pass over the matrix runs on that block; what crosses ranks
 is O(n) a collective, through ``parallel.collectives``:
@@ -22,19 +22,20 @@ is O(n) a collective, through ``parallel.collectives``:
 
 ``ShardedRows`` is the row partition (``ops.partition``) of one rank's
 block: the predict here runs the unsharded seed policy's code
-(``ops.dual.robust_normalize``, ``ops.rank1``, ``ops.sinkhorn``) on it, and
-the sharded solve (``parallel.solver``) the unsharded solver's.
-
-Not ported yet (the training half of this module and ``parallel/dual.py``):
-``make_dp_train_step``, and the 2-D edge-partitioned DualGNN's
-``dual_mesh``, ``make_sharded_dual_predict``, ``make_sharded_dual_train_step``,
-``make_sharded_dual_eval_step`` and ``assert_no_edge_tensor_gather``.
+(``ops.dual.robust_normalize``, ``ops.rank1``, ``ops.sinkhorn``) on it, the
+sharded solve (``parallel.solver``) the unsharded solver's, and the
+data-parallel step (``make_dp_train_step``) the unsharded ``one_gnn_loss``
+with gradients through the collectives (``parallel.collectives``).  The
+loss's greedy bound needs whole instances: the step gathers the block's
+cost and reduced-cost rows over "model" once, without gradient, and runs
+the greedy kernel on them; JAX exchanges one row over the mesh at each of
+the bound's n scan steps instead.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -43,6 +44,7 @@ from ..ops.features import positional_encodings, row_features
 from ..ops.partition import RowPartition
 from ..ops.rank1 import rank1_duals
 from ..ops.sinkhorn import auto_select_seed
+from ..train.loss import one_gnn_loss
 from .collectives import (
     all_gather,
     all_reduce_max,
@@ -51,11 +53,15 @@ from .collectives import (
     argmin_combine,
     float_of_ordered,
     ordered_int32,
+    pvary,
+    reduce_min,
 )
 from .mesh import Mesh
 
 __all__ = [
+    "BatchShard",
     "ShardedRows",
+    "make_dp_train_step",
     "make_sharded_predict",
     "shmap_col_min",
     "shmap_min_trick",
@@ -66,15 +72,19 @@ class ShardedRows(RowPartition):
     """One rank's block of ``rows`` consecutive rows along ``axis`` of
     ``mesh``: rank k holds rows [k rows, (k + 1) rows) of n = S rows.  Per-row
     vectors held whole are sliced on their last dimension; partial results
-    are combined over the axis's group and logged in ``mesh.log``."""
+    are combined over the axis's group and logged in ``mesh.log``.  With
+    ``batch_axis``, the rank's instances are its block of a batch split over
+    that axis too (``batch_mean``)."""
 
-    def __init__(self, mesh: Mesh, axis: str, rows: int):
+    def __init__(self, mesh: Mesh, axis: str, rows: int, batch_axis: Optional[str] = None):
         self.size = mesh.size(axis)
         self.rows = rows
         self.n = rows * self.size
         self.offset = mesh.coordinate(axis) * rows
         self.group = mesh.group(axis)
         self.log = mesh.log
+        self.batch_group = None if batch_axis is None else mesh.group(batch_axis)
+        self.batch_parts = 1 if batch_axis is None else mesh.size(batch_axis)
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         return x.narrow(-1, self.offset, self.rows)
@@ -147,8 +157,47 @@ class ShardedRows(RowPartition):
         return torch.stack(out)
 
     def reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
-        """``OneGNN``'s ``row_reduce``."""
-        return self.sum(t) if op == "sum" else self.max(t)
+        """``OneGNN``'s ``row_reduce``: the combined value, for this block's
+        rows (so its gradient is the SUM of the ranks')."""
+        return self.vary_rows(self.over_rows(t, op))
+
+    def whole_shape(self, t: torch.Tensor) -> Tuple[int, int]:
+        return self.n, t.shape[-1]
+
+    def over_rows(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return {"sum": self.sum, "min": self.min, "max": self.max}[op](t)
+
+    def vary_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return pvary(t, self.group, self.log)
+
+    def amin_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return reduce_min(t, -2, self.group, self.log)
+
+    @torch.no_grad()
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return all_gather(t, self.group, self.log, dim=-2)
+
+    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        if self.batch_group is None:
+            return t.mean()
+        return _batch_mean(t, self.batch_group, self.batch_parts, self.log)
+
+
+def _batch_mean(t: torch.Tensor, group, parts: int, log) -> torch.Tensor:
+    """The mean over a batch split evenly over ``parts`` ranks: one SUM."""
+    return all_reduce_sum(t.sum(), group, log) / float(t.numel() * parts)
+
+
+class BatchShard(RowPartition):
+    """Whole instances, the batch split over ``axis`` of ``mesh``."""
+
+    def __init__(self, mesh: Mesh, axis: str = "data"):
+        self.group = mesh.group(axis)
+        self.parts = mesh.size(axis)
+        self.log = mesh.log
+
+    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        return _batch_mean(t, self.group, self.parts, self.log)
 
 
 def shmap_col_min(mesh: Mesh, axis: str = "model") -> Callable[[torch.Tensor], torch.Tensor]:
@@ -218,3 +267,76 @@ def make_sharded_predict(
         return u, part.min_trick(cost, u)
 
     return predict
+
+
+def rank_generator(generator: Optional[torch.Generator], offset: int, device) -> Optional[torch.Generator]:
+    """A generator of this rank's own: seeded with one draw from the
+    caller's ``generator`` (the same on every rank) plus ``offset``, the
+    rank's first global row, so that no two ranks draw the same dropout
+    masks.  None without a generator."""
+    if generator is None:
+        return None
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device).item())
+    return torch.Generator(device).manual_seed(seed + offset)
+
+
+def sum_gradients(grads, group, log) -> List[torch.Tensor]:
+    """The ranks' gradients summed over ``group`` (None: every rank), one
+    all-reduce a parameter."""
+    return [all_reduce_sum(g, group, log) for g in grads]
+
+
+def make_dp_train_step(
+    model: torch.nn.Module,
+    optimizer,
+    mesh: Mesh,
+    use_cost: bool,
+    shard_rows: bool = True,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Data-parallel (and, with ``shard_rows``, row-sharded) OneGNN step:
+    ``step(cost, u_target, generator=None) -> metrics``, one update of
+    ``optimizer.params`` (the model's, the same on every rank) in place.
+
+    ``cost`` is this rank's block of the batch: its instances over "data"
+    and, with ``shard_rows``, its rows over "model"
+    (``batch_sharding(mesh, shard_n=shard_rows).local``); ``u_target`` the
+    matching block of the target row duals.  The features are the block's
+    (K1 on it, then a MIN); the model runs on the block with its gauge and
+    pools combined over "model"; the loss is ``one_gnn_loss`` over the
+    ``ShardedRows`` partition, its batch mean a SUM over "data".  The
+    gradients are summed over every rank whose data differ (all of them;
+    over "data" alone without ``shard_rows``, where the "model" ranks repeat
+    one computation), so clipping and AdamW see equal gradients on every
+    rank and the parameters stay equal.  The metrics (loss, primal_gap_mean,
+    feas_mean, u_mse_mean) are the whole batch's, on every rank."""
+    if shard_rows and use_cost:
+        model = iter_topk(model)
+    grad_group = None if shard_rows else mesh.group("data")
+
+    def step(cost: torch.Tensor, u_target: torch.Tensor, generator=None) -> Dict[str, torch.Tensor]:
+        B, n = cost.shape[0], cost.shape[-1]
+        if shard_rows:
+            part = ShardedRows(mesh, "model", cost.shape[-2], batch_axis="data")
+            with torch.no_grad():
+                feats = sharded_row_features(cost, part)
+            row_reduce = part.reduce
+        else:
+            part = BatchShard(mesh, "data")
+            with torch.no_grad():
+                feats = row_features(cost)
+            row_reduce = None
+        first_row = mesh.coordinate("data") * B * n + part.offset
+        gen = rank_generator(generator if model.dropout > 0 else None, first_row, cost.device)
+        preds = model(feats, cost=cost if use_cost else None, generator=gen, row_reduce=row_reduce)
+        loss, metrics = one_gnn_loss(cost, u_target, preds, part=part)
+        grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True, materialize_grads=True)
+        optimizer.step(sum_gradients(grads, grad_group, mesh.log))
+        with torch.no_grad():
+            return {
+                "loss": loss.detach(),
+                "primal_gap_mean": part.batch_mean(metrics["primal_gap"]),
+                "feas_mean": part.batch_mean(metrics["feas"]),
+                "u_mse_mean": part.batch_mean(metrics["u_mse"]),
+            }
+
+    return step

@@ -16,9 +16,12 @@ model draws one integer seed a layer for its dropout masks from the
 caller's generator, so the trainer hands it a CPU generator: the seeds need
 no read from the card.  The global torch RNG is never touched.
 
-The JAX trainer's ``mesh=`` (the 2-D edge-partitioned steps of
-``lapgnn_tpu/parallel/dual.py``) is not ported: it raises rather than train
-on one device in its place.
+``mesh=`` (a ('row', 'col') mesh from ``parallel.dual.dual_mesh``) trains
+with the 2-D edge-partitioned steps of ``parallel.dual``: every rank runs
+this function, takes its tile of each batch and its rows' target duals,
+and ends with the same parameters and history as the others; only rank 0
+logs.  Under a mesh the loss is the dual surrogate (no greedy bound), as in
+JAX, so its losses and gaps compare within a run, not with an unsharded one.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..device import resolve_device
 from ..models import DualGNN
@@ -173,6 +177,10 @@ def make_dual_eval_step(model: DualGNN, clip_sentinels: bool = True, normalize_g
     return step
 
 
+def _silent(_msg: str) -> None:
+    pass
+
+
 def train_dual_gnn(
     train_instances: Sequence[Dict[str, np.ndarray]],
     val_instances: Optional[Sequence[Dict[str, np.ndarray]]] = None,
@@ -184,14 +192,16 @@ def train_dual_gnn(
 ) -> Tuple[dict, Dict[str, list]]:
     """Train (or, with ``init_params``, a flax tree, fine-tune) a DualGNN.
     Returns (best params as a flax tree, history), with early stopping on
-    the validation primal-gap median, as the JAX trainer."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_dual_gnn(mesh=...): the 2-D edge-partitioned DualGNN steps "
-            "(lapgnn_tpu/parallel/) are not ported yet (see ROADMAP.md)"
-        )
+    the validation primal-gap median, as the JAX trainer.  With ``mesh``
+    the model lives on ``mesh.device`` (``device`` is not read)."""
     cfg = config or DualTrainConfig()
-    dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.dual import require_dual_mesh
+
+        require_dual_mesh(mesh)
+        if torch.distributed.get_rank() != 0:
+            log_fn = _silent
+    dev = resolve_device(device) if mesh is None else mesh.device
     model = build_dual_gnn(cfg.hidden, cfg.layers, cfg.heads, cfg.dropout, cfg.seed, dev)
 
     batcher = BucketBatcher(train_instances, cfg.batch_size, seed=cfg.seed)
@@ -203,10 +213,31 @@ def train_dual_gnn(
         model.load_state_dict(params_from_flax(merged))
         log_fn(f"warm init: {n_loaded}/{n_total} param leaves from checkpoint")
     optimizer = make_optimizer(list(model.parameters()), schedule, cfg.weight_decay, cfg.grad_clip)
-    train_step = make_dual_train_step(
-        model, optimizer, cfg.clip_sentinels, cfg.normalize_gap, cfg.supervise_duals
-    )
-    eval_step = make_dual_eval_step(model, cfg.clip_sentinels, cfg.normalize_gap)
+    if mesh is None:
+        train_step = make_dual_train_step(
+            model, optimizer, cfg.clip_sentinels, cfg.normalize_gap, cfg.supervise_duals
+        )
+        eval_step = make_dual_eval_step(model, cfg.clip_sentinels, cfg.normalize_gap)
+
+        def batch(cost, u):
+            return torch.from_numpy(cost).to(dev), torch.from_numpy(u).to(dev)
+    else:
+        from ..parallel.dual import (
+            local_tile,
+            make_sharded_dual_eval_step,
+            make_sharded_dual_train_step,
+        )
+
+        train_step = make_sharded_dual_train_step(
+            model, optimizer, mesh, cfg.clip_sentinels, cfg.normalize_gap, cfg.supervise_duals
+        )
+        eval_step = make_sharded_dual_eval_step(model, mesh, cfg.clip_sentinels, cfg.normalize_gap)
+
+        def batch(cost, u):
+            rows = u.shape[-1] // mesh.size("row")
+            first = mesh.coordinate("row") * rows
+            return (local_tile(torch.from_numpy(cost), mesh).to(dev),
+                    torch.from_numpy(u[:, first:first + rows]).to(dev))
     dropout_gen = torch.Generator().manual_seed(int(cfg.seed))
 
     history: Dict[str, list] = {"train_loss": [], "val_gap_median": []}
@@ -218,7 +249,7 @@ def train_dual_gnn(
         t0 = time.perf_counter()
         losses = []
         for cost, u, _ in batcher:
-            m = train_step(torch.from_numpy(cost).to(dev), torch.from_numpy(u).to(dev), dropout_gen)
+            m = train_step(*batch(cost, u), dropout_gen)
             losses.append(m["loss"])  # a device tensor: no sync a step
         history["train_loss"].append(
             float(np.mean(torch.stack(losses).tolist())) if losses else 0.0
@@ -226,8 +257,8 @@ def train_dual_gnn(
 
         if val_instances:
             gaps = []
-            for cost, _, _ in BucketBatcher(val_instances, cfg.batch_size, seed=0):
-                gaps.extend(eval_step(torch.from_numpy(cost).to(dev))["primal_gap"].tolist())
+            for cost, u, _ in BucketBatcher(val_instances, cfg.batch_size, seed=0):
+                gaps.extend(eval_step(batch(cost, u)[0])["primal_gap"].tolist())
             gap_med = float(np.median(gaps)) if gaps else float("inf")
             history["val_gap_median"].append(gap_med)
             log_fn(

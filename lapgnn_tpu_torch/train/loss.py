@@ -14,6 +14,16 @@ Gradients follow ``jax.grad`` of the JAX loss:
     an argmin, so it carries no gradient in JAX; here it runs under
     ``torch.no_grad`` on detached inputs.  The gradient flows through the
     dual lower bound, the hinge and the regression term only.
+
+Each loss takes a partition ``part`` (``ops.partition``, default ``WHOLE``:
+the plain loss).  With a block of the matrix (``parallel.sharded.ShardedRows``,
+rows split; ``parallel.dual.EdgeTiles``, rows and columns split), every sum,
+minimum and mean over rows, columns or the batch combines through it, and a
+vector held alike by several blocks enters each block's computation through
+its ``vary_*`` methods, so the sharded losses are this code and their
+gradients those of the whole loss (``parallel.collectives``).  The greedy
+bound reads whole rows: a row partition gathers the block's rows for it,
+without gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.cuda.greedy import greedy_total
+from ..ops.partition import WHOLE, EdgePartition
 from ..ops.sentinels import BIG, clip_cost_sentinels
 
 __all__ = [
@@ -36,15 +47,18 @@ __all__ = [
 
 
 def masked_v_proj(
-    cost: torch.Tensor, u: torch.Tensor, mask: Optional[torch.Tensor]
+    cost: torch.Tensor,
+    u: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    part: EdgePartition = WHOLE,
 ) -> torch.Tensor:
     """Min-trick column duals v_j = min_i (C_ij - u_i), masked rows and
     columns held at the ``BIG`` sentinel and masked v set to 0."""
-    cm = cost - u[..., :, None]
+    cm = cost - part.vary_cols(u)[..., :, None]
     if mask is not None:
         cm = torch.where(mask[..., :, None], cm, BIG)
         cm = torch.where(mask[..., None, :], cm, BIG)
-    v = cm.amin(-2)
+    v = part.amin_rows(cm)
     if mask is not None:
         v = torch.where(mask, v, 0.0)
     return v
@@ -71,28 +85,33 @@ def greedy_primal_upper(
     return greedy_total(red.contiguous(), cost, order, None if mask is None else mask.contiguous())
 
 
-def _shared_terms(cost, u_pred, mask, include_primal=True):
+def _shared_terms(cost, u_pred, mask, include_primal=True, part=WHOLE):
     if mask is not None:
-        mf = mask.to(cost.dtype)
+        if part is not WHOLE:
+            raise ValueError("a partitioned loss takes no mask")
+        mf_r = mf_c = mask.to(cost.dtype)
         u_pred = torch.where(mask, u_pred, 0.0)
     else:
-        mf = torch.ones(cost.shape[:-1], dtype=cost.dtype, device=cost.device)
-    v_proj = masked_v_proj(cost, u_pred, mask)
+        mf_r = torch.ones(cost.shape[:-1], dtype=cost.dtype, device=cost.device)
+        mf_c = torch.ones(cost.shape[:-2] + cost.shape[-1:], dtype=cost.dtype, device=cost.device)
+    v_proj = masked_v_proj(cost, u_pred, mask, part)
 
-    dual_lower = (u_pred * mf).sum(-1) + (v_proj * mf).sum(-1)
+    dual_lower = part.over_rows((u_pred * mf_r).sum(-1)) + part.over_cols((v_proj * mf_c).sum(-1))
 
-    hinge = torch.relu(u_pred[..., :, None] + v_proj[..., None, :] - cost)
+    u_e, v_e = part.vary_cols(u_pred), part.vary_rows(v_proj)
+    hinge = torch.relu(u_e[..., :, None] + v_e[..., None, :] - cost)
     if mask is not None:
         m2 = (mask[..., :, None] & mask[..., None, :]).to(cost.dtype)
         hinge = hinge * m2
         entries = torch.clamp_min(m2.sum((-2, -1)), 1.0)
     else:
-        entries = float(cost.shape[-1] * cost.shape[-2])
-    feas = hinge.sum((-2, -1)) / entries
+        rows, cols = part.whole_shape(cost)
+        entries = float(rows * cols)
+    feas = part.sum(hinge.sum((-2, -1))) / entries
 
     if include_primal:
-        reduced = cost - u_pred[..., :, None] - v_proj[..., None, :]
-        primal_upper = greedy_primal_upper(cost, reduced, mask)
+        reduced = cost - u_e[..., :, None] - v_e[..., None, :]
+        primal_upper = greedy_primal_upper(part.gather_rows(cost), part.gather_rows(reduced), mask)
         primal_gap = primal_upper - dual_lower
     else:
         # Surrogate without the sequential bound: maximise the dual lower
@@ -104,11 +123,11 @@ def _shared_terms(cost, u_pred, mask, include_primal=True):
             rmin = torch.where(mask, cm.amin(-1), 0.0)
             cmin = torch.where(mask, cm.amin(-2), 0.0)
         else:
-            rmin = cost.amin(-1)
-            cmin = cost.amin(-2)
-        anchor = rmin.sum(-1) + cmin.sum(-1)
+            rmin = part.amin_cols(cost)
+            cmin = part.amin_rows(cost)
+        anchor = part.over_rows(rmin.sum(-1)) + part.over_cols(cmin.sum(-1))
         primal_gap = anchor - dual_lower
-    return u_pred, v_proj, mf, primal_gap, feas
+    return u_pred, v_proj, (mf_r, mf_c), primal_gap, feas
 
 
 def one_gnn_loss(
@@ -118,19 +137,21 @@ def one_gnn_loss(
     mask: Optional[torch.Tensor] = None,
     normalize_gap: bool = False,
     include_primal: bool = True,
+    part: EdgePartition = WHOLE,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """loss = mean primal_gap + mean feas + 0.1 * mean u-MSE.
 
     ``normalize_gap`` divides the primal gap by the instance size;
     ``include_primal=False`` replaces the greedy bound by the dual
     surrogate."""
-    u_pred, v_proj, mf, primal_gap, feas = _shared_terms(
-        cost, preds["u"], mask, include_primal
+    u_pred, v_proj, (mf, _), primal_gap, feas = _shared_terms(
+        cost, preds["u"], mask, include_primal, part
     )
-    cnt = torch.clamp_min(mf.sum(-1), 1.0)
-    u_reg = (((u_pred - u_target) ** 2) * mf).sum(-1) / cnt
+    cnt = torch.clamp_min(part.over_rows(mf.sum(-1)), 1.0)
+    u_reg = part.over_rows((((u_pred - u_target) ** 2) * mf).sum(-1)) / cnt
     gap_term = primal_gap / cnt if normalize_gap else primal_gap
-    loss = gap_term.mean() + feas.mean() + 0.1 * u_reg.mean()
+    mean = part.batch_mean
+    loss = mean(gap_term) + mean(feas) + 0.1 * mean(u_reg)
     metrics = {
         "primal_gap": primal_gap,
         "feas": feas,
@@ -148,6 +169,7 @@ def dual_gnn_loss(
     clip_sentinels: bool = False,
     u_target: Optional[torch.Tensor] = None,
     include_primal: bool = True,
+    part: EdgePartition = WHOLE,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """loss = mean primal_gap + mean feas + 0.1 * MSE(v_hint, v_proj).
 
@@ -155,14 +177,15 @@ def dual_gnn_loss(
     ``u_target`` adds 0.1 * the gauge-corrected MSE(u, u*) (the per-instance
     mean difference removed, since (u + c, v - c) is the same dual point)."""
     if clip_sentinels:
-        cost = clip_cost_sentinels(cost, mask)
-    u_pred, v_proj, mf, primal_gap, feas = _shared_terms(
-        cost, preds["u"], mask, include_primal
+        cost = clip_cost_sentinels(cost, mask, part=part)
+    u_pred, v_proj, (mf, mf_c), primal_gap, feas = _shared_terms(
+        cost, preds["u"], mask, include_primal, part
     )
-    cnt = torch.clamp_min(mf.sum(-1), 1.0)
-    v_reg = (((preds["v_hint"] - v_proj) ** 2) * mf).sum(-1) / cnt
+    cnt = torch.clamp_min(part.over_rows(mf.sum(-1)), 1.0)
+    v_reg = part.over_cols((((preds["v_hint"] - v_proj) ** 2) * mf_c).sum(-1)) / cnt
     gap_term = primal_gap / cnt if normalize_gap else primal_gap
-    loss = gap_term.mean() + feas.mean() + 0.1 * v_reg.mean()
+    mean = part.batch_mean
+    loss = mean(gap_term) + mean(feas) + 0.1 * mean(v_reg)
     metrics = {
         "primal_gap": primal_gap,
         "feas": feas,
@@ -171,8 +194,8 @@ def dual_gnn_loss(
     }
     if u_target is not None:
         diff = (u_pred - u_target) * mf
-        shift = diff.sum(-1, keepdim=True) / cnt[..., None]
-        u_reg = ((diff - shift * mf) ** 2).sum(-1) / cnt
-        loss = loss + 0.1 * u_reg.mean()
+        shift = part.vary_rows(part.over_rows(diff.sum(-1, keepdim=True)) / cnt[..., None])
+        u_reg = part.over_rows(((diff - shift * mf) ** 2).sum(-1)) / cnt
+        loss = loss + 0.1 * mean(u_reg)
         metrics["u_mse_gauge"] = u_reg
     return loss, metrics

@@ -36,6 +36,7 @@ from .schedule import AdamW, make_optimizer, warmup_cosine
 
 __all__ = [
     "BucketBatcher",
+    "State",
     "TrainConfig",
     "build_one_gnn",
     "load_params",
@@ -72,6 +73,24 @@ class TrainConfig:
     min_epochs: int = 10
     patience: int = 6
     seed: int = 0
+
+
+@dataclasses.dataclass
+class State:
+    """The JAX trainer's ``State(params, opt_state, step)`` over the port's
+    optimizer: ``optimizer.params`` are the parameters (the model's own
+    tensors, updated in place), its moments the optimizer state and its
+    count of updates the step."""
+
+    optimizer: AdamW
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return self.optimizer.params
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.count
 
 
 class BucketBatcher:

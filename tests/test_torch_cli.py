@@ -151,8 +151,38 @@ def test_train_dual_gnn_cli_hands_its_trainer_what_jax_does(datasets, tmp_path, 
     _records_equal(targs[0], jargs[0])
     assert json.loads((tmp_path / "t" / "meta.json").read_text()) == \
         json.loads((tmp_path / "j" / "meta.json").read_text())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train_dual_gnn.main(args + ["--output", str(tmp_path / "m"), "--mesh-2d", "2x2"])
+
+
+class _Mesh:
+    shape = {"row": 2, "col": 2}
+
+
+@pytest.mark.parametrize("spec", ["2x2", "auto", "4x1"])
+def test_train_dual_gnn_cli_builds_the_mesh_jax_does(datasets, tmp_path, monkeypatch, spec):
+    """``--mesh-2d``: both CLIs ask ``dual_mesh`` for the same factorisation
+    and hand what it returns to their trainers as ``mesh``; the port's joins
+    the job's process group first (stood in for here: the pytest process
+    joins none)."""
+    import lapgnn_tpu.parallel.dual as jdual
+    import lapgnn_tpu.train.dual_trainer as jdt
+    import lapgnn_tpu_torch.parallel as tpar
+    import lapgnn_tpu_torch.train.dual_trainer as tdt
+
+    jcalls, tcalls, jmesh, tmesh, joined = [], [], [], [], []
+    monkeypatch.setattr(jdt, "train_dual_gnn", _recorder(jcalls))
+    monkeypatch.setattr(tdt, "train_dual_gnn", _recorder(tcalls))
+    monkeypatch.setattr(jdual, "dual_mesh", lambda **kw: jmesh.append(kw) or _Mesh())
+    monkeypatch.setattr(tpar, "dual_mesh", lambda **kw: tmesh.append(kw) or _Mesh())
+    monkeypatch.setattr(tpar, "initialize_distributed", lambda **kw: joined.append(kw) or True)
+    args = ["--train", str(datasets / "tiny" / "train.h5"), "--mesh-2d", spec, "--epochs", "1"]
+    j_train_dual.main(args + ["--output", str(tmp_path / "j")])
+    train_dual_gnn.main(args + ["--output", str(tmp_path / "t"), "--device", "cpu"])
+    device = tmesh[0].pop("device")
+    assert tmesh == jmesh and device == "cpu" and joined == [{"device": "cpu"}]
+    assert jmesh[0] == ({} if spec == "auto" else dict(zip(("row", "col"), map(int, spec.split("x")))))
+    assert isinstance(jcalls[0][1]["mesh"], _Mesh) and isinstance(tcalls[0][1]["mesh"], _Mesh)
+    assert _config(tcalls[0][0]) == _config(jcalls[0][0])
+    assert (tmp_path / "t" / "meta.json").exists()
 
 
 def _progressive_yaml(tmp_path, datasets, out_dir):

@@ -302,13 +302,18 @@ def test_train_dual_gnn_matches_jax(jax_init_by_shape):
 
 
 def test_train_dual_gnn_takes_no_mesh_and_leaves_the_global_rng():
-    """``mesh=`` raises instead of training on one device; with dropout on,
-    two CPU runs from one seed end bit-equal without touching the global
-    torch RNG; without validation the latest params are returned."""
+    """``mesh=`` takes only a ('row', 'col') mesh (``parallel.dual_mesh``;
+    training under one is held in ``test_torch_parallel_train.py``) and
+    raises on any other; with dropout on, two CPU runs from one seed end
+    bit-equal without touching the global torch RNG; without validation the
+    latest params are returned."""
+    from types import SimpleNamespace
+
     train = _labelled("uniform", 8, 2, 4)
     cfg = tdt.DualTrainConfig(hidden=8, layers=1, heads=2, dropout=0.3, epochs=1, batch_size=2)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tdt.train_dual_gnn(train, None, cfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="'row', 'col'"):
+        tdt.train_dual_gnn(train, None, cfg, mesh=SimpleNamespace(axis_names=("data", "model")),
+                           device="cpu")
     state = torch.get_rng_state()
     runs = [tdt.train_dual_gnn(train, None, cfg, log_fn=lambda s: None, device="cpu")
             for _ in range(2)]

@@ -2,9 +2,10 @@
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0]
-                          [--phases build,compare,times,stream,train,eval,dual_train,front_ends,parallel,parallel_train]
+                          [--phases build,compare,device,times,stream,train,eval,dual_train,front_ends,parallel,parallel_train]
 
 ``--phases`` runs a subset (for a first look at a changed kernel,
+``build,device`` after a change to the device solver or its kernels S1-S3,
 ``build,stream`` after a change to the transfer layer, ``build,train`` after
 one to the training path, ``build,eval`` after one to the evaluation path,
 ``build,dual_train`` after one to DualGNN training, ``build,front_ends``
@@ -49,22 +50,34 @@ Phases; any failure exits non-zero without the final ``ok`` line:
   4. Device end to end: the default ``WarmStartPipeline(mode="device", ...)``
      solves the same four families at n = 2048 in float32 on the card and
      certifies each against the float64 matrix on the host; each cost must
-     equal SciPy's (1e-12 relative), be certified and not routed to the host,
-     and the counters must show K4 in every instance besides K1-K3.  Per
-     instance: the certificate's route (raw, repair or polish), predict,
-     device-solve and certify times, and the solver's loop and sync counts.
-  5. The port's device solver on the card and on the CPU from the same
-     float32 input and seeds at n = 512 (uniform, tie): equal assignments,
-     bit-equal duals.
-  6. Where one device solve's time goes (uniform): its stages, and the
-     device's idle share and K4's time under torch.profiler.
+     equal SciPy's (1e-12 relative), be certified and not routed to the host;
+     the solve must read nothing back on the host (``host_syncs`` 0 in
+     every solve), S1, S2 and S3 must each launch in every instance besides
+     K1-K3, and one uncertified ``solve`` must make exactly one
+     device-to-host copy (torch.profiler).  Per instance: the certificate's
+     route (raw, repair or polish), predict, device-solve and certify times,
+     and the solver's loop counts.
+  5. The port's device solver from the same matrix and seeds three ways: on
+     the card through S1-S3, on the card through their plain versions (the
+     eager loops), and on the CPU (a spawned pool that starts first), at
+     n = 512 and 2048 on the four families and on uniform with a NaN row
+     and with an all-+inf row (float32, min-trick seeds), on uniform and tie
+     in float64 (n = 1024, and uniform at 2048) and on uniform seeded by the
+     pipeline's predicted duals: x, y and v bit for bit (every NaN one
+     class), the fallback flag and every loop count equal.  Meanwhile S1's
+     unstaged layout (its row vectors read through L2) against its plain
+     loop: forced at n = 2048, and in float64 at n = 12288, past what the
+     staged one holds.
+  6. Where one device solve's time goes (uniform): its stages by CUDA
+     events, and the device's idle share and S1-S3's device times under
+     torch.profiler.
   7. Stream: ``solve_stream(certify=True)`` in the postures of the JAX
      package's bench (``STREAM_POSTURES``: float32, topk16, bfloat16, float16
      and uint16 at n = 2048, with a noisy_linear instance for topk16 and a
      sparse one for uint16; topk16 with ``microbatch=8`` at n = 512 and
      1024), each timed as one stream and then as serial ``solve`` calls:
      every instance certified and equal to SciPy's optimum (1e-12 relative)
-     and to its per-call result, K1-K4 launched in the stream; per posture
+     and to its per-call result, K1-K3 and S1-S3 launched in the stream; per posture
      the payload's bytes, host pack, upload (copy stream) and decode times.
      Then the card's decode against the CPU's, bit for bit, at n = 2048 and
      8193 (past the ramp fill's gate).
@@ -136,7 +149,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      ``SeededTorchSolver`` in float32 at n = 2048 (within n 2^-23 max|C| of
      the optimum), ``verify_solver_correctness`` with all seven solver
      classes at n = 1024 on uniform and sparse, ``LAPMODSolver`` on sparse at
-     2048 and the route that answered; K1-K4 launched, each of their calls
+     2048 and the route that answered; K1-K3 and S1-S3 launched (the solver
+     classes' solves run S1-S3 in float32 and float64), each K1-K3 call
      held against its plain version as in the eval phase.  At most 60 s.
  12. Parallel: row-sharded serving at one_gnn_default's full width, n = 2048.
      World 1 under NCCL (a TCP store on 127.0.0.1), on uniform and sparse:
@@ -148,7 +162,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      unsharded solve on the card, ``make_sharded_predict`` (data 1 x model 2)
      within atol 1e-5 of the same steps unsharded, ``shmap_col_min`` /
      ``shmap_min_trick`` bit-equal to K1 / K2 on the whole matrix.  Every
-     K1, K2 and K4 call of both held against its plain version bit for bit,
+     K1, K2 and K4 call of both held against its plain version bit for bit
+     (K4 at world 2 only: a block of several ranks keeps the eager loops),
      every rank's collective log held to ``assert_no_matrix_allgather``; the
      ms per sharded solve and each rank's largest collective.  Then
      ``cli.scaling_benchmark`` (mesh 1, n = 2048, the roofline block at 2048,
@@ -182,7 +197,11 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      L2, device time a launch under torch.profiler) beside ``torch.amin``
      over the same matrix, K1 and K2 on every path and geometry, also at
      n = 4096 and on narrow matrices; at n = 2048 a call of K1 or K2 must be
-     one kernel.
+     one kernel.  S1-S3 at n = 2048 and 8192 on the arguments a seeded solve
+     of a uniform matrix hands them (CUDA events, L2 flushed) beside their
+     plain loops (host clock) and their bounds from this run's loop counts
+     (a matrix that fits in L2 read once from device memory, the rest by
+     its operations; ``_solver_bound_ms``).
 
 Output: a JSON line per phase, then the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -204,12 +223,12 @@ from pathlib import Path
 
 # H100 SXM data-sheet peaks (dense, no sparsity), at a 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20  # an H100's L2
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12  # float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
 
 K3_RTOL, K3_ATOL = 2e-5, 2e-6
 N_E2E = 2048
-N_DEVICE_VS_CPU = 512
 FAMILIES_E2E = ("uniform", "noisy_linear", "sparse", "tie")
 COMPARE_SIZES = (1000, 2048, 8192)
 # The device path's certificate tolerance.  The default 1e-6 admits a
@@ -249,7 +268,25 @@ KERNELS = {
         "source": "lapgnn_tpu_torch/csrc/greedy.cu",
         "replaces": "lapgnn_tpu/train/loss.py:79",
     },
+    # no Pallas kernel: the device solver's lax.while_loops, which XLA runs
+    # on the device
+    "augment_sweep": {
+        "route": "cuda",
+        "source": "lapgnn_tpu_torch/csrc/augment.cu",
+        "replaces": "lapgnn_tpu/solver/jv.py:533",
+    },
+    "arr_auction": {
+        "route": "cuda",
+        "source": "lapgnn_tpu_torch/csrc/arr.cu",
+        "replaces": "lapgnn_tpu/solver/seeded.py:163",
+    },
+    "greedy_match": {
+        "route": "cuda",
+        "source": "lapgnn_tpu_torch/csrc/greedy_match.cu",
+        "replaces": "lapgnn_tpu/solver/seeded.py:99",
+    },
 }
+SOLVER_KERNELS = ("augment_sweep", "arr_auction", "greedy_match")
 # The train phase: the sizes of one_gnn_default's config.
 TRAIN_SIZES = ((512, 32, 8), (1024, 8, 0), (2048, 2, 0))  # (n, train, val)
 TRAIN_TIMED = ((32, 512), (32, 1024), (16, 2048))  # (B, n) of the step times
@@ -324,6 +361,29 @@ def _bound_ms(name: str, B: int, n: int, m: int, itemsize: int = 4):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _solver_bound_ms(name: str, elements: int, n: int, itemsize: int = 4):
+    """Least time for one call of a solver kernel on these inputs, from the
+    matrix elements this run's data needs it to read: S1 reads C once a
+    sweep (sweeps x n^2) and does about five float operations an element
+    (two subtracts, the clamp, the add, the compare); S2 reads the free
+    rows of C each round (K4's subtract and two compares an element); S3
+    reads the free rows of the bool tight matrix each round (integer work
+    the rate table does not cover: bytes only).  While the (n, n) matrix
+    fits in the card's L2, only its first read must come from device memory
+    (at most n^2 elements): the later ones can be served on chip, at a rate
+    the table does not give, so they count by their operations alone.
+    Above L2 every read counts at the device-memory rate.  Returns the
+    bound, what bounds it, and the device-memory time of every read (the
+    bound above L2, an upper estimate below)."""
+    every_read = elements * itemsize / HBM_BYTES_PER_S * 1e3
+    from_hbm = min(elements, n * n) if n * n * itemsize <= L2_BYTES else elements
+    ops = elements * {"augment_sweep": 5, "arr_auction": 3, "greedy_match": 0}[name]
+    rate = F64_OPS_PER_S if itemsize == 8 else F32_OPS_PER_S
+    t_bytes = from_hbm * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), every_read
 
 
 def phase_build(torch, strict=True):
@@ -1001,11 +1061,12 @@ def phase_stream(torch, seed):
     with the device part and the certificate timed in both runs.
     Every instance must be certified and equal SciPy's float64 optimum to
     1e-12 relative; the stream's results must equal the calls' (assignment,
-    cost, flags); K1-K4 must have launched in the stream.  Then the decode on
+    cost, flags); K1-K3 and S1-S3 must have launched in the stream.  Then the decode on
     the card against the CPU decode of the same payloads, bit for bit."""
     import numpy as np
 
-    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
+    from lapgnn_tpu_torch.ops.cuda import (arr_auction, augment_sweep, col_min, greedy_match,
+                                           min_trick, row_features_stats)
     from lapgnn_tpu_torch.pipeline import WarmStartPipeline
     from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint
 
@@ -1031,7 +1092,8 @@ def phase_stream(torch, seed):
             wall_ms = (time.perf_counter() - t0) * 1e3
         launches = _read_launches()
         if (row_features_stats.launches < len(chunks) or col_min.launches < len(chunks)
-                or min_trick.launches < 2 * len(chunks) or two_min.launches < 1):
+                or min_trick.launches < 2 * len(chunks)
+                or min(augment_sweep.launches, arr_auction.launches, greedy_match.launches) < 1):
             raise AssertionError(f"{label}: the stream skipped a kernel: launches {launches}")
 
         serial, serial_ms = [], []
@@ -1130,14 +1192,32 @@ def _ms_host(torch, fn, reps):
     return statistics.median(times)
 
 
+def _copies(torch, fn):
+    """The copies in one call of ``fn`` under torch.profiler, by kind
+    ({"Memcpy HtoD (Pageable -> Device)": 1, ...}), or None where the
+    profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not rows:
+        return None
+    return {e.key: e.count for e in rows if e.key.startswith("Memcpy")}
+
+
 def phase_device_e2e(torch, seed):
     """The default serving call on the card: predict, the float32 seeded
-    solve on the device, the float64 certificate on the host."""
+    solve on the device (S3, S2, S1: no host read from the seed to the
+    result), the float64 certificate on the host."""
     import numpy as np
 
-    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
+    from lapgnn_tpu_torch.ops.cuda import (arr_auction, augment_sweep, col_min, greedy_match,
+                                           min_trick, row_features_stats)
     from lapgnn_tpu_torch.pipeline import WarmStartPipeline
-    from lapgnn_tpu_torch.solver.jv import SolveStats
+    from lapgnn_tpu_torch.solver.jv import DEVICE_COUNTS, SolveStats
     from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
     from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint
 
@@ -1150,24 +1230,30 @@ def phase_device_e2e(torch, seed):
         raise AssertionError("the default pipeline is not the device mode on the card")
     n = N_E2E
     costs = _e2e_costs(seed)
+    solver = {"augment_sweep": augment_sweep, "arr_auction": arr_auction,
+              "greedy_match": greedy_match}
 
     _zero_launches()
-    results, stats, k4_per_instance = {}, {}, {}
+    results, stats, per_instance = {}, {}, {}
     for f, C in costs.items():
-        before = two_min.launches
+        before = {k: w.launches for k, w in solver.items()}
         results[f] = pipe.solve(C, certify=True)
         stats[f] = pipe.last_solve_stats[0]
-        k4_per_instance[f] = two_min.launches - before
+        per_instance[f] = {k: w.launches - before[k] for k, w in solver.items()}
     torch.cuda.synchronize()
     launches = _read_launches()
 
     per = len(costs)
     if (row_features_stats.launches < per or col_min.launches < per
-            or min_trick.launches < 2 * per or min(k4_per_instance.values()) < 1):
+            or min_trick.launches < 2 * per
+            or min(min(p.values()) for p in per_instance.values()) < 1):
         raise AssertionError(
             f"the device path skipped a kernel: launches {launches}, "
-            f"K4 per instance {k4_per_instance}"
+            f"S1-S3 per instance {per_instance}"
         )
+    syncs = {f: st.host_syncs for f, st in stats.items()}
+    if any(syncs.values()):
+        raise AssertionError(f"the device solve read back on the host: host syncs {syncs}")
     report = {}
     for f, C in costs.items():
         out = results[f]
@@ -1182,13 +1268,19 @@ def phase_device_e2e(torch, seed):
             raise AssertionError(f"{f}: routed to the host")
         how = ("polish" if out["polished"][0] else "repair" if out["repaired"][0] else "raw")
 
-        # times per instance, outside the counted run
+        # outside the counted run: the copies back of one uncertified solve,
+        # then times
+        copies = _copies(torch, lambda: pipe.solve(C))
+        d2h = None if copies is None else sum(c for k, c in copies.items() if "DtoH" in k)
+        if d2h is not None and d2h != 1:
+            raise AssertionError(f"{f}: a device-mode solve made {d2h} device-to-host "
+                                 f"copies: {copies}")
         Ct = torch.from_numpy(C).cuda()[None]
         predict_ms = _ms_host(torch, lambda: pipe.predict_duals(Ct), 3)
         u, v = pipe.predict_duals(Ct)
         with torch.inference_mode():
             solve_ms = _ms_host(torch, lambda: lapjv_seeded_single(
-                Ct[0], u[0], v[0], eps=pipe.eps, gate=pipe.gate, stats=SolveStats()), 2)
+                Ct[0], u[0], v[0], eps=pipe.eps, gate=pipe.gate, stats=SolveStats()), 3)
         packed = pipe._e2e(Ct).cpu().numpy()
         again = pipe._unpack(packed, n)
         t0 = time.perf_counter()
@@ -1201,47 +1293,244 @@ def phase_device_e2e(torch, seed):
             "repaired": bool(out["repaired"][0]), "polished": bool(out["polished"][0]),
             "polish_ms": float(out["polish_ms"][0]),
             "predict_ms_median": predict_ms, "device_solve_ms_median": solve_ms,
-            "certify_ms": certify_ms, "k4_launches": k4_per_instance[f],
-            "loops": {"greedy_rounds": st.greedy_rounds, "arr_rounds": st.arr_rounds,
-                      "aug_rounds": st.aug_rounds, "sweeps": st.sweeps,
-                      "flip_steps": st.flip_steps, "host_syncs": st.host_syncs,
-                      "flip_ms": st.flip_ms},
+            "certify_ms": certify_ms, "solver_kernel_launches": per_instance[f],
+            "device_to_host_copies_a_solve": d2h if d2h is not None else "not measured",
+            "copies_a_solve": copies if copies is not None else "not measured",
+            "loops": {**{k: getattr(st, k) for k in DEVICE_COUNTS},
+                      "host_syncs": st.host_syncs},
         }
     _emit({"phase": "device_e2e", "n": n, "certify_tol": CERTIFY_TOL,
            "launches": launches, "instances": report})
     return launches, pipe, costs
 
 
-def phase_device_vs_cpu(torch, pipe, seed):
-    """The port's seeded solver on the card and on the CPU from the same
-    float32 matrix and seeds (the pipeline's, min-trick projected)."""
+# device_vs_cpu: the sizes, and the cases at each (the four families, and
+# uniform with a NaN row or an all-+inf row).
+DEVICE_VS_CPU_N = (512, 2048)
+VS_CPU_CASES = ("uniform", "noisy_linear", "sparse", "tie", "nan_row", "inf_row")
+# float64 (S1's and S2's float64 forms), and the pipeline's predicted seeds
+VS_CPU_EXTRA = ((1024, "uniform_f64"), (1024, "tie_f64"), (2048, "uniform_f64"),
+                (2048, "predicted"))
+# S1's unstaged layout: forced where the staged one fits, and where it must
+# run (float64 above 11,622 columns)
+AUGMENT_UNSTAGED = ((2048, "float32", True), (12288, "float64", False))
+
+
+def _vs_cpu_case(n, case, seed):
+    """(C, u, v) of one device_vs_cpu case: the family's matrix in float32
+    (a "_f64" case in float64; nan_row / inf_row: uniform with row 3 NaN /
+    row 5 +inf) and the min-trick seed of the clean matrix (u its row
+    minima)."""
     import numpy as np
 
     from lapgnn_tpu_torch.data.generators import FAMILIES
+
+    dtype = np.float64 if case.endswith("_f64") else np.float32
+    case = case.removesuffix("_f64")
+    fam = case if case in FAMILIES else "uniform"
+    C = FAMILIES[fam](n, np.random.default_rng(seed + 5 + n)).astype(dtype)
+    u = C.min(1)
+    v = (C - u[:, None]).min(0)
+    if case == "nan_row":
+        C[3] = np.nan
+    elif case == "inf_row":
+        C[5] = np.inf
+    return C, u, v
+
+
+def _cpu_solve(job):
+    """(n, case, seed, threads, (C, u, v) or None) -> the port's seeded solve
+    of the case (of the arrays given, else ``_vs_cpu_case``'s) on the CPU: a
+    worker of device_vs_cpu's process pool."""
+    import torch
+
+    from lapgnn_tpu_torch.solver.jv import DEVICE_COUNTS, SolveStats
     from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
 
-    n = N_DEVICE_VS_CPU
-    rng = np.random.default_rng(seed + 5)
-    report = {}
-    for f in ("uniform", "tie"):
-        Ct = torch.from_numpy(FAMILIES[f](n, rng).astype(np.float32)).cuda()
-        u, v = pipe.predict_duals(Ct[None])
-        with torch.inference_mode():
-            on_card = lapjv_seeded_single(Ct, u[0], v[0], gate=pipe.gate)
-            on_cpu = lapjv_seeded_single(Ct.cpu(), u[0].cpu(), v[0].cpu(), gate=pipe.gate)
-        same_x = torch.equal(on_card.col_of_row.cpu(), on_cpu.col_of_row)
-        same_v = torch.equal(on_card.v.cpu().view(torch.int32), on_cpu.v.view(torch.int32))
-        if not (same_x and same_v):
-            raise AssertionError(f"{f}: the card and the CPU disagree (x {same_x}, v {same_v})")
-        report[f] = {"equal_col_of_row": same_x, "bit_equal_v": same_v,
-                     "used_fallback": bool(on_card.used_fallback)}
-    _emit({"phase": "device_vs_cpu", "n": n, "instances": report})
+    n, case, seed, threads, given = job
+    torch.set_num_threads(threads)
+    st = SolveStats()
+    arrays = _vs_cpu_case(n, case, seed) if given is None else given
+    res = lapjv_seeded_single(*map(torch.from_numpy, arrays), gate="both", stats=st)
+    return {"x": res.col_of_row, "y": res.row_of_col, "v": res.v,
+            "used_fallback": bool(res.used_fallback),
+            "counts": {k: getattr(st, k) for k in DEVICE_COUNTS}}
+
+
+@contextlib.contextmanager
+def _plain_solver_loops():
+    """The seeded solve's routers sent to S1-S3's plain versions: the eager
+    loops, on the card."""
+    import lapgnn_tpu_torch.solver.jv as jv_mod
+    import lapgnn_tpu_torch.solver.seeded as seeded_mod
+    from lapgnn_tpu_torch.ops.cuda.arr import arr_auction_plain
+    from lapgnn_tpu_torch.ops.cuda.augment import augment_sweep_plain
+    from lapgnn_tpu_torch.ops.cuda.greedy_match import greedy_match_plain
+
+    with _wrapped(jv_mod, "augment_sweep", lambda _: augment_sweep_plain), \
+            _wrapped(seeded_mod, "arr_auction", lambda _: arr_auction_plain), \
+            _wrapped(seeded_mod, "greedy_match", lambda _: greedy_match_plain):
+        yield
+
+
+def _same_solve(torch, a, b):
+    """Two solves' x, y, v (bits, every NaN one class), fallback flags and
+    loop counts: the names of those that differ."""
+    diff = [k for k in ("x", "y") if not torch.equal(a[k].cpu(), b[k].cpu())]
+    va, vb = a["v"].cpu(), b["v"].cpu()
+    nan = torch.isnan(va)
+    bits = torch.int64 if va.dtype == torch.float64 else torch.int32
+    if not (va.dtype == vb.dtype and torch.equal(nan, torch.isnan(vb))
+            and torch.equal(va[~nan].view(bits), vb[~nan].view(bits))):
+        diff.append("v")
+    if a["used_fallback"] != b["used_fallback"]:
+        diff.append("used_fallback")
+    diff += [k for k in a["counts"] if a["counts"][k] != b["counts"][k]]
+    return diff
+
+
+def _augment_unstaged(torch, seed):
+    """S1's unstaged layout (u, x and e read through L2) against its plain
+    loop on the card, on the state a seeded solve of a uniform matrix hands
+    S1, at each ``AUGMENT_UNSTAGED`` size: forced where the staged layout
+    fits, and above float64's 11,622 columns, where the wrapper picks it.
+    x, y, v and the counts bit for bit; each side's host-clock ms and the
+    bound from this run's sweeps."""
+    from lapgnn_tpu_torch.ops.cuda import augment as augment_mod
+    from lapgnn_tpu_torch.ops.cuda.augment import _augment, augment_sweep_plain, augment_staged
+
+    out = {}
+    for n, dtype, forced in AUGMENT_UNSTAGED:
+        dt = getattr(torch, dtype)
+        C = _batch(torch, n, seed + 11 * n, fams=("uniform",))[0].to(dt)
+        if augment_staged(n, C.element_size()) != forced:
+            raise AssertionError(f"augment_unstaged: n = {n} {dtype} is not the case meant")
+        _, _, after = _solver_inputs(torch, C)
+        runs = {}
+        for how in ("kernel", "plain"):
+            counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+            torch.cuda.synchronize()
+            before = augment_mod.augment_sweep.launches
+            t0 = time.perf_counter()
+            if how == "kernel":
+                got = (_augment(C, *after, counts, staged=False) if forced
+                       else augment_mod.augment_sweep(C, *after, counts))
+            else:
+                got = augment_sweep_plain(C, *after, counts)
+            torch.cuda.synchronize()
+            runs[how] = {"x": got[0], "y": got[1], "v": got[2], "used_fallback": False,
+                         "counts": dict(zip(("aug_rounds", "sweeps", "flip_steps"),
+                                            counts.tolist())),
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": augment_mod.augment_sweep.launches - before}
+        differ = _same_solve(torch, runs["kernel"], runs["plain"])
+        if differ or runs["kernel"]["launches"] != 1:
+            raise AssertionError(f"augment_unstaged n = {n} {dtype}: {differ}, "
+                                 f"{runs['kernel']['launches']} launches")
+        sweeps = runs["kernel"]["counts"]["sweeps"]
+        bound, by, _ = _solver_bound_ms("augment_sweep", sweeps * n * n, n, C.element_size())
+        out[f"{dtype}_{n}"] = {"forced": forced, "counts": runs["kernel"]["counts"],
+                               "kernel_ms_host_clock": runs["kernel"]["ms"],
+                               "plain_ms_host_clock": runs["plain"]["ms"],
+                               "bound_ms": bound, "bound_by": by}
+        del C, after, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_device_vs_cpu(torch, pipe, seed):
+    """The port's seeded solver from the same matrix and seeds three ways: on
+    the card through S1-S3, on the card through their plain versions (the
+    eager loops), and on the CPU (a spawned pool, started first), at n in
+    ``DEVICE_VS_CPU_N`` on ``VS_CPU_CASES`` (float32, min-trick seeds), and on
+    ``VS_CPU_EXTRA``: float64 cases, and a float32 uniform one seeded by
+    ``pipe.predict_duals``.  x, y, v bit for bit (every NaN one class), the
+    fallback flag and every loop count must agree.  While the CPU solves,
+    the card holds S1's unstaged layout against its plain loop
+    (``_augment_unstaged``).  Returns the largest |v| difference between the
+    kernels and the plain loops over the finite entries."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+    from lapgnn_tpu_torch.solver.jv import DEVICE_COUNTS, SolveStats
+    from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
+
+    t_phase = time.perf_counter()
+    cases = [(n, c) for n in DEVICE_VS_CPU_N for c in VS_CPU_CASES] + list(VS_CPU_EXTRA)
+    given = {}
+    for n, case in VS_CPU_EXTRA:
+        if case == "predicted":
+            C = FAMILIES["uniform"](n, np.random.default_rng(seed + 6 + n)).astype(np.float32)
+            u, v = pipe.predict_duals(torch.from_numpy(C).cuda()[None])
+            given[(n, case)] = (C, u[0].cpu().numpy(), v[0].cpu().numpy())
+    # two workers, so that the two longest (the poisoned cases at the
+    # largest n, n + 1 rounds each) run side by side on half the cores each
+    workers = 2
+    threads = max(1, (os.cpu_count() or 1) // workers)
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        # the largest first: the poisoned cases run n + 1 rounds
+        order = sorted(cases, key=lambda nc: (-nc[0], nc[1] not in ("nan_row", "inf_row")))
+        futures = {nc: pool.submit(_cpu_solve, (*nc, seed, threads, given.get(nc)))
+                   for nc in order}
+        report, on_card, err = {}, {}, 0.0
+        _zero_launches()
+        for n, case in cases:
+            arrays = given.get((n, case)) or _vs_cpu_case(n, case, seed)
+            C, u, v = (torch.from_numpy(a).cuda() for a in arrays)
+            runs = {}
+            for how in ("kernels", "plain"):
+                st = SolveStats()
+                with contextlib.ExitStack() as stack:
+                    if how == "plain":
+                        stack.enter_context(_plain_solver_loops())
+                    with torch.inference_mode():
+                        res = lapjv_seeded_single(C, u, v, gate="both", stats=st)
+                    torch.cuda.synchronize()
+                runs[how] = {"x": res.col_of_row, "y": res.row_of_col, "v": res.v,
+                             "used_fallback": bool(res.used_fallback),
+                             "counts": {k: getattr(st, k) for k in DEVICE_COUNTS},
+                             "host_syncs": st.host_syncs}
+            if runs["kernels"]["host_syncs"] != 0:
+                raise AssertionError(f"{case} n={n}: the kernels' solve read back on the host")
+            on_card[(n, case)] = runs["kernels"]
+            fin = torch.isfinite(runs["plain"]["v"])
+            if fin.any():
+                err = max(err, float((runs["kernels"]["v"] - runs["plain"]["v"])[fin].abs().max()))
+            report[f"{case}_{n}"] = {"kernels_vs_plain_differ": _same_solve(torch, runs["kernels"],
+                                                                             runs["plain"]),
+                                     "counts": runs["kernels"]["counts"],
+                                     "used_fallback": runs["kernels"]["used_fallback"]}
+        launches = _read_launches()
+        unstaged = _augment_unstaged(torch, seed)
+        for n, case in cases:
+            report[f"{case}_{n}"]["card_vs_cpu_differ"] = _same_solve(
+                torch, on_card[(n, case)], futures[(n, case)].result())
+    finally:
+        pool.shutdown(cancel_futures=True)
+    bad = {k: r for k, r in report.items()
+           if r["kernels_vs_plain_differ"] or r["card_vs_cpu_differ"]}
+    if bad:
+        raise AssertionError(f"device_vs_cpu: the solves disagree: {bad}")
+    for k in SOLVER_KERNELS:
+        if launches[k] < len(cases):
+            raise AssertionError(f"device_vs_cpu: {k} launched {launches[k]} times")
+    _emit({"phase": "device_vs_cpu", "n": list(DEVICE_VS_CPU_N), "cases": report,
+           "augment_unstaged": unstaged, "cpu_workers": workers,
+           "kernels_vs_plain_max_abs_err_v": err,
+           "phase_seconds": time.perf_counter() - t_phase})
+    return {"max_abs_err": err}
 
 
 def phase_device_breakdown(torch, pipe, C_np):
-    """Where one device solve's time goes (uniform, n = N_E2E): each stage on
-    the host clock between synchronizes, then one whole solve under
-    torch.profiler for the device's idle share and K4's device time."""
+    """Where one device solve's time goes (uniform, n = N_E2E): its stages
+    by CUDA events (``SolveStats(timed=True)``), then one whole solve under
+    torch.profiler for the device's idle share and each kernel's device
+    time."""
     from lapgnn_tpu_torch.solver.jv import SolveStats
     from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
 
@@ -1252,22 +1541,29 @@ def phase_device_breakdown(torch, pipe, C_np):
         with torch.inference_mode():
             lapjv_seeded_single(Ct, u[0], v[0], eps=pipe.eps, gate=pipe.gate, stats=stats)
 
+    solve(SolveStats())  # warm
     timed = SolveStats(timed=True)
     solve(timed)
+    stage_ms = dict(timed.stage_ms)
     rows, wall_ms = _profile(torch, lambda: solve(SolveStats()))
     busy_ms = sum(r[0] for r in rows) / 1e3
-    k4_ms = sum(d for d, k, _ in rows if "twomin" in k) / 1e3
+    by_kernel = {name: sum(d for d, k, _ in rows if key in k) / 1e3
+                 for name, key in (("augment_sweep", "augment_kernel"),
+                                   ("arr_auction", "arr_kernel"),
+                                   ("greedy_match", "greedy_match_kernel"))}
     _emit({
         "phase": "device_breakdown", "n": C_np.shape[-1],
-        "stage_ms": timed.stage_ms, "flip_ms": timed.flip_ms,
-        "host_syncs": timed.host_syncs,
-        "k4_device_ms": k4_ms if rows else "not measured",
-        "k4_share_of_arr": (k4_ms / timed.stage_ms["arr"]) if rows else "not measured",
+        "stage_ms_cuda_events": stage_ms, "host_syncs": timed.host_syncs,
+        "loops": {k: getattr(timed, k) for k in ("greedy_rounds", "arr_rounds", "aug_rounds",
+                                                   "sweeps", "flip_steps")},
+        "kernel_device_ms": by_kernel if rows else "not measured",
         "profiled_solve_wall_ms": wall_ms,
         "device_busy_ms": busy_ms if rows else "not measured",
         "device_idle_share": (1.0 - busy_ms / wall_ms) if rows else "not measured",
         "top_kernels": [{"name": k[:80], "device_ms": d / 1e3, "count": c} for d, k, c in rows[:8]],
     })
+    return {"stage_ms": stage_ms, "kernel_device_ms": by_kernel if rows else None,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if rows else None}
 
 
 def _labelled(job):
@@ -2298,14 +2594,14 @@ def phase_front_ends(torch, seed):
     CLIs made must have gone through the pipeline, and every assignment the
     pipeline returned is held in float64 to SciPy's optimum (1e-12
     relative).  Then the solver classes:
-    ``TorchSolver`` and ``SeededTorchSolver`` in float32 (K4) at n = 2048
+    ``TorchSolver`` and ``SeededTorchSolver`` in float32 (S1-S3) at n = 2048
     on uniform, seeded by row / column minima and by the rank-1 seed, within
     n * 2^-23 * max|C| of SciPy's optimum; ``verify_solver_correctness`` at
-    1e-10 with all seven classes (the torch ones in float64, K4's float64
-    form) at n = 1024 on uniform and sparse; ``LAPMODSolver`` on sparse at n = 2048 and the route
-    that answered.  The launch counters, zeroed just before, must show K1-K4,
-    and every K1 / K2 / K3 / K4 call of the phase is held against its plain
-    version on its own arguments (K1, K2, K4 bit for bit, K3 within rtol
+    1e-10 with all seven classes (the torch ones in float64: S1 and S2's
+    float64 forms) at n = 1024 on uniform and sparse; ``LAPMODSolver`` on sparse at n = 2048 and the route
+    that answered.  The launch counters, zeroed just before, must show K1-K3
+    and S1-S3, and every K1 / K2 / K3 call of the phase is held against its plain
+    version on its own arguments (K1, K2 bit for bit, K3 within rtol
     2e-5 / atol 2e-6 with its selection channels bit-equal).  At most 60 s."""
     import tempfile
 
@@ -2436,7 +2732,7 @@ def phase_front_ends(torch, seed):
         torch.cuda.synchronize()
         launches = _read_launches()
     drive_s = time.perf_counter() - t_phase
-    want = ("col_min", "min_trick", "row_features_stats", "two_min")
+    want = ("col_min", "min_trick", "row_features_stats", *SOLVER_KERNELS)
     if any(launches[k] < 1 for k in want):
         raise AssertionError(f"the front ends skipped a kernel: launches {launches}")
 
@@ -2749,7 +3045,7 @@ def _par_world1(torch, seed):
             out[fam] = {**checks, "pipeline_ms": pipe_ms, "sharded_solve_ms": solve_ms,
                         "unsharded_solve_ms": unsharded_ms,
                         "cost_float64": got, "scipy_cost": opt,
-                        "largest_collective": max(e[1] for e in mesh.log),
+                        "largest_collective": max((e[1] for e in mesh.log), default=0),
                         "collectives": len(mesh.log)}
     finally:
         dist.destroy_process_group()
@@ -3507,6 +3803,94 @@ def _two_min_variants(torch, C, v, reps, flush, no_flush):
     return out
 
 
+def _solver_inputs(torch, C):
+    """The arguments a seeded solve of C hands S3, S2 and S1, from the
+    min-trick seed of C's row minima: the tight matrix, the greedy matching
+    with the seed's v (ARR's start), and the state after ARR."""
+    from lapgnn_tpu_torch.solver.jv import Matching
+    from lapgnn_tpu_torch.solver.seeded import greedy_tight_matching, jacobi_arr
+
+    n = C.shape[0]
+    v = (C - C.amin(1)[:, None]).amin(0)
+    u = (C - v[None, :]).amin(1)
+    tight = (C - u[:, None] - v[None, :]).abs() <= 1e-5
+    x, y = greedy_tight_matching(tight)
+    start = Matching(x, y, v)
+    return tight, start, jacobi_arr(C, start, max_rounds=max(64, n // 32))
+
+
+def _free_rows_a_round(torch, C, tight, start, rounds):
+    """The free rows each round of S3 and of S2 reads, from their plain
+    loops on the card: a row partition that holds every row and records
+    how many rows are free each time a round asks (once a round)."""
+    from lapgnn_tpu_torch.ops.cuda.twomin import two_min_plain
+    from lapgnn_tpu_torch.ops.partition import RowPartition
+    from lapgnn_tpu_torch.solver.jv import SolveStats
+    from lapgnn_tpu_torch.solver.seeded import _greedy_tight_matching_eager, _jacobi_arr_eager
+
+    class Recording(RowPartition):
+        def __init__(self):
+            self.free = []
+
+        def local(self, x):
+            self.free.append(int((x < 0).sum()))
+            return x
+
+    greedy, arr = Recording(), Recording()
+    _greedy_tight_matching_eager(tight, SolveStats(), greedy)
+    _jacobi_arr_eager(C, start, rounds, 0.0, SolveStats(), arr, bid=two_min_plain)
+    return greedy.free, arr.free
+
+
+def _solver_times(torch, C, flush, reps):
+    """S1-S3 on the arguments a seeded solve of C hands them: each kernel's
+    CUDA-event ms (L2 flushed before each call) beside its plain loop's
+    host-clock ms (each condition is a host read), its loop count, launches
+    a call, and the bound from that count (``_solver_bound_ms``)."""
+    from lapgnn_tpu_torch.ops.cuda import arr_auction, augment_sweep, greedy_match
+    from lapgnn_tpu_torch.ops.cuda.arr import arr_auction_plain
+    from lapgnn_tpu_torch.ops.cuda.augment import augment_sweep_plain
+    from lapgnn_tpu_torch.ops.cuda.greedy_match import greedy_match_plain
+
+    n = C.shape[0]
+    tight, start, after = _solver_inputs(torch, C)
+    rounds = max(64, n // 32)
+    free_greedy, free_arr = _free_rows_a_round(torch, C, tight, start, rounds)
+    calls = {
+        "greedy_match": (lambda c: greedy_match(tight, c[0:1]),
+                         lambda c: greedy_match_plain(tight, c[0:1]), 0, 1),
+        "arr_auction": (lambda c: arr_auction(C, *start, rounds, 0.0, c[1:2]),
+                        lambda c: arr_auction_plain(C, *start, rounds, 0.0, c[1:2]), 1, 4),
+        "augment_sweep": (lambda c: augment_sweep(C, *after, c[2:]),
+                          lambda c: augment_sweep_plain(C, *after, c[2:]), 3, 4),
+    }
+    out = {}
+    for name, (kern, plain, slot, itemsize) in calls.items():
+        counts = torch.zeros(5, dtype=torch.int64, device=C.device)
+        wrapper = {"greedy_match": greedy_match, "arr_auction": arr_auction,
+                   "augment_sweep": augment_sweep}[name]
+        before = wrapper.launches
+        kern(counts)
+        torch.cuda.synchronize()
+        launched = wrapper.launches - before
+        count = int(counts[slot])
+        scratch = torch.zeros(5, dtype=torch.int64, device=C.device)
+        rows_read = {"greedy_match": sum(free_greedy), "arr_auction": sum(free_arr),
+                     "augment_sweep": count * n}[name]
+        bound, by, every_read = _solver_bound_ms(name, rows_read * n, n, itemsize)
+        out[name] = {
+            "ms": _time_ms(torch, lambda: kern(scratch), reps, flush),
+            "plain_ms": _ms_host(torch, lambda: plain(scratch), 1 if n > N_E2E else 3),
+            "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "every_read_from_hbm_ms": every_read,
+            "loop_count": count, "matrix_rows_read": rows_read,
+            "loop": {"greedy_match": "rounds", "arr_auction": "rounds",
+                     "augment_sweep": "sweeps"}[name],
+            "launches_a_call": launched,
+        }
+    return out
+
+
 def phase_times(torch, seed):
     from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
@@ -3574,6 +3958,8 @@ def phase_times(torch, seed):
                                                     no_flush),
                          "bound_ms": bound, "bound_by": by}
         del C64, v64
+        for name, row in _solver_times(torch, C[0], flush, 10 if n == N_E2E else 3).items():
+            out.setdefault(name, {})[n] = row
     n = 4096
     C = _batch(torch, n, seed + 7 * n, fams=("uniform",))
     v = torch.randn((1, n), device="cuda", generator=g) * 0.3
@@ -3655,12 +4041,20 @@ def phase_breakdown(torch, pipe, C_np):
     })
 
 
+def _device_phases(torch, seed):
+    """device_e2e, device_vs_cpu and device_breakdown, as the full run has
+    them."""
+    _, dpipe, costs = phase_device_e2e(torch, seed)
+    phase_device_vs_cpu(torch, dpipe, seed)
+    phase_device_breakdown(torch, dpipe, costs["uniform"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="comma-separated subset of build,compare,times,stream,train,eval,"
-                         "dual_train,front_ends,parallel,parallel_train (no ok line)")
+                    help="comma-separated subset of build,compare,device,times,stream,train,"
+                         "eval,dual_train,front_ends,parallel,parallel_train (no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -3684,6 +4078,7 @@ def main() -> int:
         if args.phases:
             subset = {"build": lambda: phase_build(torch, strict=False),
                       "compare": lambda: phase_compare(torch, args.seed),
+                      "device": lambda: _device_phases(torch, args.seed),
                       "times": lambda: phase_times(torch, args.seed),
                       "stream": lambda: phase_stream(torch, args.seed),
                       "train": lambda: phase_train(torch, args.seed),
@@ -3711,7 +4106,7 @@ def main() -> int:
         pipe, c_uniform = phase_e2e(torch, args.seed)
         phase_breakdown(torch, pipe, c_uniform)
         launches, dpipe, costs = phase_device_e2e(torch, args.seed)
-        phase_device_vs_cpu(torch, dpipe, args.seed)
+        vs_cpu = phase_device_vs_cpu(torch, dpipe, args.seed)
         phase_device_breakdown(torch, dpipe, costs["uniform"])
         phase_stream(torch, args.seed)
         train = phase_train(torch, args.seed, train_data)
@@ -3728,6 +4123,20 @@ def main() -> int:
 
     kernels = []
     for kname, info in KERNELS.items():
+        if kname in SOLVER_KERNELS:
+            # the device solver's kernels: launches on the device path (four
+            # instances at n = 2048), error against their plain loops over
+            # device_vs_cpu's solves, times on a uniform solve's arguments
+            t = times[kname]
+            kernels.append({"name": kname, **info, "launches": launches[kname],
+                            "launches_eval": evaluated["launches"][kname],
+                            "launches_dual_train": dual["launches"][kname],
+                            "launches_front_ends": front["launches"][kname],
+                            "launches_parallel": par["launches"].get(kname, 0),
+                            "launches_parallel_train": par_train["launches"][kname],
+                            "max_abs_err": vs_cpu["max_abs_err"], "n": N_E2E, **t[N_E2E],
+                            "at_n_8192": t[8192], "card": card})
+            continue
         if kname == "greedy_total":
             # the training path's kernel: launches from the train phase, times
             # at its (16, 2048) batch, then (32, 512) and (32, 1024); the error

@@ -16,7 +16,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 __all__ = ["BUILD_DIR", "BuildError", "SharedLibrary"]
 
@@ -33,7 +33,8 @@ class SharedLibrary:
     ``command`` is called at build time (not at import) and returns the
     compiler invocation without the output and source arguments, so a
     missing compiler only matters to a caller that needs the library.
-    ``bind`` sets ``argtypes``/``restype`` on the loaded library.  ``load``
+    ``bind`` sets ``argtypes``/``restype`` on the loaded library; ``deps``
+    are the headers the source includes, hashed with it.  ``load``
     may be called from several threads at once; the compiler runs outside
     the GIL, so libraries loaded from separate threads build in parallel.
     """
@@ -44,8 +45,10 @@ class SharedLibrary:
         subdir: str,
         command: Callable[[], List[str]],
         bind: Callable[[ctypes.CDLL], None],
+        deps: Sequence[Path] = (),
     ):
         self.source = Path(source)
+        self.deps = [Path(d) for d in deps]
         self.subdir = subdir
         self._command = command
         self._bind = bind
@@ -58,7 +61,7 @@ class SharedLibrary:
         compiler's output (for ``nvcc -Xptxas -v``: registers, shared memory
         and spills of each kernel) is kept beside the library as ``.log``."""
         cmd = self._command()
-        key = self.source.read_bytes() + "\0".join(cmd).encode()
+        key = b"".join(p.read_bytes() for p in [self.source, *self.deps]) + "\0".join(cmd).encode()
         tag = hashlib.sha256(key).hexdigest()[:16]
         out = BUILD_DIR / self.subdir / f"lib{self.source.stem}_{tag}.so"
         if out.exists():

@@ -5,8 +5,9 @@
 //   argmin1_i = the first column attaining the row minimum,
 //   min1_i    = red[i, argmin1_i],
 //   min2_i    = the minimum of red[i, j] over j != argmin1_i,
-// in one read of C.  It is the bid of every Jacobi-ARR round of the device
-// solver (solver/seeded.py:jacobi_arr).
+// in one read of C.  Its device code is in twomin.cuh, which the device
+// solver's Jacobi-ARR kernel (arr.cu) shares for its bid; this kernel is the
+// bid of the eager ARR loop (solver/seeded.py:_jacobi_arr_eager).
 //
 // Bound: device-memory bytes (C and v read once, three (n,) vectors
 // written).  In practice two things hold it above that bound.  At the
@@ -45,190 +46,23 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "twomin.cuh"
+
 namespace {
+
+using lapgnn::FloatState;
+using lapgnn::KeyState;
+using lapgnn::ReadOnlyV;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kNoIndex = 0x7FFFFFFF;
-constexpr unsigned kAllLanes = 0xFFFFFFFFu;
 
-constexpr uint32_t kSign = 0x80000000u;
-constexpr uint32_t kTopKey = 0xFFFFFFFFu;
-
-// Order key of a reduced cost x = c - w, as torch.argmin orders floats: NaN
-// below everything, -0.0 equal to +0.0.  Adding +0.0 turns -0.0 into +0.0;
-// the usual order-isomorphic map of f32 onto uint32 follows (negatives
-// bit-inverted, positives sign-flipped); the result of a float operation on
-// a NaN is the canonical NaN 0x7FFFFFFF, whose image 0xFFFFFFFF the final
-// + 1 wraps to 0, below the image of -inf.  No key is 0xFFFFFFFF.
-__device__ __forceinline__ uint32_t order_key(float c, float w) {
-  const uint32_t u = __float_as_uint((c - w) + 0.0f);
-  return (u ^ ((uint32_t)((int32_t)u >> 31) | kSign)) + 1u;
-}
-
-__device__ __forceinline__ unsigned long long pack(uint32_t k, int j) {
-  return ((unsigned long long)k << 32) | (uint32_t)j;
-}
-__device__ __forceinline__ unsigned long long min64(unsigned long long a,
-                                                    unsigned long long b) {
-  return a < b ? a : b;
-}
-__device__ __forceinline__ unsigned long long max64(unsigned long long a,
-                                                    unsigned long long b) {
-  return a < b ? b : a;
-}
-
-// The two smallest (key, column) pairs of the columns seen so far, in
-// lexicographic order: (k1, j1) is the first argmin, (k2, j2) the smallest
-// of the rest (k2 == k1 on a tie).  Everything is branch-free integer
-// min / max / select, a few operations a column with short dependence
-// chains, because at the solver's size the compares, not the bytes, are
-// what the SMs wait for.
-struct KeyState {
-  uint32_t k1, k2;
-  int j1, j2;
-
-  __device__ __forceinline__ void init() {
-    k1 = k2 = kTopKey;
-    j1 = j2 = kNoIndex;
-  }
-
-  // Column j comes after every column seen so far by this lane, so a
-  // strict compare keeps the first index among equals.
-  __device__ __forceinline__ void push(float c, float w, int j) {
-    const uint32_t k = order_key(c, w);
-    const bool lt1 = k < k1;
-    const bool lt2 = k < k2;
-    j2 = lt1 ? j1 : (lt2 ? j : j2);
-    k2 = min(k2, max(k1, k));
-    j1 = lt1 ? j : j1;
-    k1 = min(k1, k);
-  }
-
-  // Another partial of the same row, over any other set of columns: the
-  // smaller first pair wins, and the second is the smallest of the loser's
-  // first pair and both seconds.  Pairs are distinct (columns differ), so
-  // 64-bit (key, column) words order them.
-  __device__ __forceinline__ void merge(unsigned long long o1, unsigned long long o2) {
-    const unsigned long long p1 = pack(k1, j1), p2 = pack(k2, j2);
-    const unsigned long long n1 = min64(p1, o1);
-    const unsigned long long n2 = min64(max64(p1, o1), min64(p2, o2));
-    k1 = (uint32_t)(n1 >> 32);
-    j1 = (int)(uint32_t)n1;
-    k2 = (uint32_t)(n2 >> 32);
-    j2 = (int)(uint32_t)n2;
-  }
-
-  __device__ __forceinline__ void merge_lanes() {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned long long o1 = __shfl_xor_sync(kAllLanes, pack(k1, j1), off);
-      const unsigned long long o2 = __shfl_xor_sync(kAllLanes, pack(k2, j2), off);
-      merge(o1, o2);
-    }
-  }
-
-  // min1 and min2 are the elements at the two columns themselves, read
-  // again: the bits of the gather form, the sign of a zero and a NaN
-  // included.  A row of one column has no second: +inf.
-  __device__ __forceinline__ void write(const float* crow, const float* vb,
-                                        float* min1, float* min2,
-                                        int32_t* argmin, long long o) const {
-    min1[o] = crow[j1] - vb[j1];
-    min2[o] = j2 == kNoIndex ? INFINITY : crow[j2] - vb[j2];
-    argmin[o] = j1;
-  }
-};
-
-// Lexicographic (value, index) order with NaN smallest (torch.argmin).
-template <typename T>
-__device__ __forceinline__ bool lex_less(T a, int ia, T b, int ib) {
-  const bool an = isnan(a), bn = isnan(b);
-  if (an || bn) return an && (!bn || ia < ib);
-  return a < b || (a == b && ia < ib);
-}
-
-// Minimum that propagates NaN (amin).
-template <typename T>
-__device__ __forceinline__ T nan_min(T a, T b) {
-  return (isnan(a) || a < b) ? a : b;
-}
-
-// The same two minima kept as floats (float or double): (m1, i1) the first
-// argmin, m2 the minimum of the rest.
-template <typename T>
-struct FloatState {
-  T m1;
-  int i1;
-  T m2;
-
-  __device__ __forceinline__ void init() {
-    m1 = m2 = INFINITY;
-    i1 = kNoIndex;
-  }
-
-  // Column j comes after every column seen so far by this lane.
-  __device__ __forceinline__ void push(T c, T w, int j) {
-    const T x = c - w;
-    if (lex_less(x, j, m1, i1)) {
-      m2 = nan_min(m1, m2);
-      m1 = x;
-      i1 = j;
-    } else {
-      m2 = nan_min(m2, x);
-    }
-  }
-
-  // The winner keeps its m1 and i1; the new m2 is the minimum of the
-  // loser's m1 and both m2.
-  __device__ __forceinline__ void merge(T om1, int oi1, T om2) {
-    if (lex_less(om1, oi1, m1, i1)) {
-      m2 = nan_min(m1, nan_min(m2, om2));
-      m1 = om1;
-      i1 = oi1;
-    } else {
-      m2 = nan_min(m2, nan_min(om1, om2));
-    }
-  }
-
-  __device__ __forceinline__ void merge_lanes() {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const T om1 = __shfl_xor_sync(kAllLanes, m1, off);
-      const int oi1 = __shfl_xor_sync(kAllLanes, i1, off);
-      const T om2 = __shfl_xor_sync(kAllLanes, m2, off);
-      merge(om1, oi1, om2);
-    }
-  }
-
-  __device__ __forceinline__ void write(const T*, const T*, T* min1, T* min2,
-                                        int32_t* argmin, long long o) const {
-    min1[o] = m1;
-    min2[o] = m2;
-    argmin[o] = i1;
-  }
-};
-
-// The four columns 4q .. 4q+3 of one 16-byte vector.
-template <typename State>
-__device__ __forceinline__ void push4(State& s, const float4& c, const float4& w,
-                                      int q) {
-  const int j = q << 2;
-  s.push(c.x, w.x, j);
-  s.push(c.y, w.y, j + 1);
-  s.push(c.z, w.z, j + 2);
-  s.push(c.w, w.w, j + 3);
-}
-
-// One warp per row.  kUnroll loads of C and of v are requested before the
-// first compare; a lane's columns still come in increasing order.  16-byte
-// loads (kVec4) are float only.
+// One warp per row (lapgnn::scan_row); lane 0 writes the row's result.
 template <typename T, typename State, bool kVec4, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
     twomin_kernel(const T* __restrict__ C, const T* __restrict__ v,
                   T* __restrict__ min1, T* __restrict__ min2,
                   int32_t* __restrict__ argmin, int n, int m) {
-  static_assert(!kVec4 || sizeof(T) == 4, "16-byte loads are float only");
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int b = blockIdx.y;
@@ -238,39 +72,14 @@ __global__ void __launch_bounds__(kThreads)
 
   State s;
   s.init();
-  if constexpr (kVec4) {
-    const float4* c4 = reinterpret_cast<const float4*>(crow);
-    const float4* v4 = reinterpret_cast<const float4*>(vb);
-    const int m4 = m >> 2;
-    int q = lane;
-    for (; q + 32 * (kUnroll - 1) < m4; q += 32 * kUnroll) {
-      float4 c[kUnroll], w[kUnroll];
-#pragma unroll
-      for (int i = 0; i < kUnroll; ++i) {
-        c[i] = __ldg(c4 + q + 32 * i);
-        w[i] = __ldg(v4 + q + 32 * i);
-      }
-#pragma unroll
-      for (int i = 0; i < kUnroll; ++i) push4(s, c[i], w[i], q + 32 * i);
-    }
-    for (; q < m4; q += 32) push4(s, __ldg(c4 + q), __ldg(v4 + q), q);
-  } else {
-    int j = lane;
-    for (; j + 32 * (kUnroll - 1) < m; j += 32 * kUnroll) {
-      T c[kUnroll], w[kUnroll];
-#pragma unroll
-      for (int i = 0; i < kUnroll; ++i) {
-        c[i] = __ldg(crow + j + 32 * i);
-        w[i] = __ldg(vb + j + 32 * i);
-      }
-#pragma unroll
-      for (int i = 0; i < kUnroll; ++i) s.push(c[i], w[i], j + 32 * i);
-    }
-    for (; j < m; j += 32) s.push(__ldg(crow + j), __ldg(vb + j), j);
-  }
-
+  lapgnn::scan_row<T, State, kVec4, kUnroll, ReadOnlyV>(s, crow, vb, m, lane);
   s.merge_lanes();
-  if (lane == 0) s.write(crow, vb, min1, min2, argmin, (long long)b * n + row);
+  if (lane == 0) {
+    const long long o = (long long)b * n + row;
+    int arg;
+    s.template result<ReadOnlyV>(crow, vb, min1[o], min2[o], arg);
+    argmin[o] = arg;
+  }
 }
 
 template <typename State>

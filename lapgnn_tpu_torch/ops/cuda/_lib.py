@@ -3,7 +3,9 @@
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` into a library with a plain C interface, loaded with
 ``ctypes``.  No ``--use_fast_math``: the feature kernel's entropy channel
-(``expf``/``logf``) is held to 2e-5 relative.  Nothing here runs at import;
+(``expf``/``logf``) is held to 2e-5 relative.  The solver's persistent
+kernels (S1-S3) also build with ``--fmad=false``: their thresholds round
+twice, as the plain versions' do.  Nothing here runs at import;
 the build runs at a wrapper's first CUDA call, or when a caller
 (``chip_smoke.py``) loads every ``SharedLibrary`` at once from threads.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+from functools import partial
 from pathlib import Path
 from typing import Dict, List
 
@@ -20,12 +23,12 @@ import torch
 
 from ..._build import SharedLibrary
 
-__all__ = ["KERNEL_LIBS", "check", "ptr", "stream_ptr"]
+__all__ = ["KERNEL_LIBS", "check", "coop_blocks", "ptr", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent.parent.parent / "csrc"
 
 
-def _nvcc_command() -> List[str]:
+def _nvcc_command(*extra: str) -> List[str]:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = Path(cuda_home) / "bin" / "nvcc"
     exe = str(nvcc) if nvcc.exists() else shutil.which("nvcc")
@@ -33,12 +36,15 @@ def _nvcc_command() -> List[str]:
         raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
     return [
         exe, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *extra,
     ]
 
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+_D = ctypes.c_double
 
 
 def _bind_colmin(lib: ctypes.CDLL) -> None:
@@ -73,13 +79,56 @@ def _bind_greedy(lib: ctypes.CDLL) -> None:
     lib.lapgnn_greedy_total.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP]
 
 
+def _bind_augment(lib: ctypes.CDLL) -> None:
+    lib.lapgnn_augment_occupancy.restype = _I
+    lib.lapgnn_augment_occupancy.argtypes = [_I, _I, _I]
+    lib.lapgnn_augment_work_bytes.restype = _LL
+    lib.lapgnn_augment_work_bytes.argtypes = [_I, _I, _I]
+    lib.lapgnn_augment.restype = _I
+    lib.lapgnn_augment.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP]
+    lib.lapgnn_augment_f64.restype = _I
+    lib.lapgnn_augment_f64.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _D, _VP]
+
+
+def _bind_arr(lib: ctypes.CDLL) -> None:
+    lib.lapgnn_arr_occupancy.restype = _I
+    lib.lapgnn_arr_occupancy.argtypes = [_I, _I]
+    lib.lapgnn_arr_work_bytes.restype = _LL
+    lib.lapgnn_arr_work_bytes.argtypes = [_I, _I, _I]
+    lib.lapgnn_arr.restype = _I
+    lib.lapgnn_arr.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP]
+    lib.lapgnn_arr_f64.restype = _I
+    lib.lapgnn_arr_f64.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _I, _VP]
+
+
+def _bind_greedy_match(lib: ctypes.CDLL) -> None:
+    lib.lapgnn_greedy_match_occupancy.restype = _I
+    lib.lapgnn_greedy_match_occupancy.argtypes = [_I]
+    lib.lapgnn_greedy_match_work_bytes.restype = _LL
+    lib.lapgnn_greedy_match_work_bytes.argtypes = [_I]
+    lib.lapgnn_greedy_match.restype = _I
+    lib.lapgnn_greedy_match.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP]
+
+
+_TWOMIN_H = CSRC / "twomin.cuh"
+_SOLVER_FLAGS = partial(_nvcc_command, "--fmad=false")
+
 KERNEL_LIBS: Dict[str, SharedLibrary] = {
     "colmin": SharedLibrary(CSRC / "colmin.cu", "kernels", _nvcc_command, _bind_colmin),
     "features": SharedLibrary(
         CSRC / "features.cu", "kernels", _nvcc_command, _bind_features
     ),
-    "twomin": SharedLibrary(CSRC / "twomin.cu", "kernels", _nvcc_command, _bind_twomin),
+    "twomin": SharedLibrary(
+        CSRC / "twomin.cu", "kernels", _nvcc_command, _bind_twomin, deps=[_TWOMIN_H]
+    ),
     "greedy": SharedLibrary(CSRC / "greedy.cu", "kernels", _nvcc_command, _bind_greedy),
+    "augment": SharedLibrary(
+        CSRC / "augment.cu", "kernels", _SOLVER_FLAGS, _bind_augment, deps=[_TWOMIN_H]
+    ),
+    "arr": SharedLibrary(CSRC / "arr.cu", "kernels", _SOLVER_FLAGS, _bind_arr, deps=[_TWOMIN_H]),
+    "greedy_match": SharedLibrary(
+        CSRC / "greedy_match.cu", "kernels", _SOLVER_FLAGS, _bind_greedy_match
+    ),
 }
 
 
@@ -94,3 +143,20 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} failed to launch: CUDA error {rc}")
+
+
+def coop_blocks(occupancy: int, sms: int, work_blocks: int, per_sm: int = 2) -> int:
+    """Blocks of a cooperative launch: every block must be resident at once,
+    so at most ``occupancy`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    for the kernel's threads and shared memory) times the SM count; at most
+    ``per_sm`` a SM, since every block joins every grid sync and the solver
+    kernels' passes are short; and no more than ``work_blocks``, the blocks
+    the problem has work for.  An occupancy below 1 (a kernel the card
+    cannot hold, or a CUDA error as its negative) raises."""
+    if occupancy < 1:
+        raise RuntimeError(f"the card holds no block of this cooperative kernel ({occupancy})")
+    return max(1, min(sms * min(occupancy, per_sm), work_blocks))
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

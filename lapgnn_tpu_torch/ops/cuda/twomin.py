@@ -1,8 +1,10 @@
 """K4 per-row two-minimum of C - v: CUDA kernel and plain version.
 
 Replaces ``lapgnn_tpu/ops/pallas/twomin.py:pallas_two_min`` (:40).  The
-kernel lives in ``csrc/twomin.cu``; it is the bid of every Jacobi-ARR round
-of the device solver (``solver/seeded.jacobi_arr``).
+kernel lives in ``csrc/twomin.cu``, its device code in ``csrc/twomin.cuh``,
+which the device solver's ARR kernel (S2, ``csrc/arr.cu``) shares for its
+bid; the wrapper is the bid of the eager Jacobi-ARR loop, which a row block
+of several ranks runs (``solver/seeded._jacobi_arr_eager``).
 
 Bound on this card: device-memory bytes.  One call reads C and v once and
 writes three (n,) vectors, ``B*n*m*4 + B*m*4 + 3*B*n*4`` bytes: about 5.0 us

@@ -63,6 +63,7 @@ __all__ = [
     "ShardedRows",
     "make_dp_train_step",
     "make_sharded_predict",
+    "serving_rows",
     "shmap_col_min",
     "shmap_min_trick",
 ]
@@ -215,9 +216,32 @@ def shmap_min_trick(
     return lambda C_blk, u_blk: ShardedRows(mesh, axis, C_blk.shape[-2]).min_trick(C_blk, u_blk)
 
 
-def sharded_row_features(C: torch.Tensor, part: ShardedRows) -> torch.Tensor:
+class _Alone(RowPartition):
+    """Every row, held by the one rank of a serving axis: ``RowPartition``'s
+    methods, which make no collective; the min-trick is kernel K2 and
+    ``reduce`` the model's row reduction, as ``ShardedRows`` runs them on a
+    block."""
+
+    def min_trick(self, C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return min_trick(C.contiguous(), u.contiguous())
+
+    def reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """``OneGNN``'s ``row_reduce``: ``t`` already covers every row."""
+        return t
+
+
+def serving_rows(mesh: Mesh, axis: str, rows: int) -> RowPartition:
+    """The partition the serving factories run a rank's block of ``rows``
+    rows on: a whole one when ``axis`` has one rank (the block is every row:
+    no collective, and the solver takes its kernels, ``solver.seeded``), a
+    ``ShardedRows`` else."""
+    return _Alone() if mesh.size(axis) == 1 else ShardedRows(mesh, axis, rows)
+
+
+def sharded_row_features(C: torch.Tensor, part: RowPartition) -> torch.Tensor:
     """The sort-based 21-D features of a (B, n/S, n) block's rows."""
-    pos = positional_encodings(part.n, device=C.device)[part.offset : part.offset + part.rows]
+    rows = C.shape[-2]
+    pos = positional_encodings(C.shape[-1], device=C.device)[part.offset : part.offset + rows]
     return row_features(C, col_min=part.min(col_min(C.contiguous())), pos=pos)
 
 
@@ -255,7 +279,7 @@ def make_sharded_predict(
 
     @torch.inference_mode()
     def predict(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        part = ShardedRows(mesh, "model", cost.shape[-2])
+        part = serving_rows(mesh, "model", cost.shape[-2])
         if seed_mode == "rank1":
             u, _ = rank1_duals(cost, part=part)
             return u, part.min_trick(cost, u)

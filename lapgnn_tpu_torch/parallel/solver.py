@@ -23,7 +23,10 @@ every rank alike.
 Every row index a rank computes is global (the greedy's hash, the winners,
 the predecessors), so the result is bit-equal to the unsharded solve of the
 whole matrix.  ``assert_no_matrix_allgather`` reads the mesh's collective
-log where the JAX package reads the compiled HLO.
+log where the JAX package reads the compiled HLO.  On an axis of one rank
+the block is every row: the factories run on a whole partition
+(``parallel.sharded.serving_rows``), which makes no collective, and on the
+card the solve takes the kernels S1-S3 as the unsharded one does.
 """
 
 from __future__ import annotations
@@ -33,11 +36,12 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from ..ops.dual import robust_normalize
+from ..ops.partition import RowPartition
 from ..ops.rank1 import rank1_duals, select_best_seed
 from ..solver.jv import SolveStats
 from ..solver.seeded import SeededResult, lapjv_seeded_single
 from .mesh import Mesh
-from .sharded import ShardedRows, iter_topk, sharded_row_features
+from .sharded import iter_topk, serving_rows, sharded_row_features
 
 __all__ = [
     "assert_no_matrix_allgather",
@@ -46,13 +50,13 @@ __all__ = [
 ]
 
 
-def _rows(mesh: Mesh, axis: str, C: torch.Tensor) -> ShardedRows:
-    part = ShardedRows(mesh, axis, C.shape[0])
-    if C.ndim != 2 or part.n != C.shape[1]:
+def _rows(mesh: Mesh, axis: str, C: torch.Tensor) -> RowPartition:
+    size = mesh.size(axis)
+    if C.ndim != 2 or C.shape[0] * size != C.shape[1]:
         raise ValueError(
-            f"a rank's block of a square instance is (n / {part.size}, n); got {tuple(C.shape)}"
+            f"a rank's block of a square instance is (n / {size}, n); got {tuple(C.shape)}"
         )
-    return part
+    return serving_rows(mesh, axis, C.shape[0])
 
 
 def make_sharded_seeded_solve(

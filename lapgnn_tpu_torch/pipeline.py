@@ -6,9 +6,11 @@ min-trick projections through K2):
 
   * ``device`` (the default, as in the JAX class): the seeded
     Jonker–Volgenant solve runs on the GPU in float32
-    (``solver.seeded.lapjv_seeded_single``, whose ARR bid is kernel K4),
-    instance by instance; one packed float32 buffer ``[cost, used_fallback,
-    col_of_row, v]`` comes back to the host in one copy, and ``certify=True``
+    (``solver.seeded.lapjv_seeded_single``, whose greedy, ARR and
+    augmentation loops are the persistent kernels S3, S2 and S1), instance
+    by instance with no read by the host; one packed float32 buffer ``[cost,
+    used_fallback, col_of_row, v]`` comes back to the host in one copy, the
+    batch's only one, and ``certify=True``
     holds each result to the float64 certificate against the caller's
     matrix, repairing the duals or polishing on the host where it fails.
   * ``hybrid``: ``(u, v)`` come back in one stacked copy and the native
@@ -392,8 +394,8 @@ class WarmStartPipeline:
         two workers (numpy and the native repair and polish release the
         interpreter lock for their heavy loops) while the next instance
         solves; their exceptions re-raise at the end.  The device solve reads
-        its loop conditions on the host, so it returns solved: its packed
-        result is copied to the host at once, the one sync the stream adds.
+        nothing back on the host; its packed result is copied to the host at
+        once, the one copy (and the one sync) an entry makes.
         On the CPU the same code runs and the copies are no-ops.
 
         ``microbatch > 1`` stacks consecutive instances into one batch (the
@@ -516,7 +518,9 @@ class WarmStartPipeline:
         instance on the device (as the JAX serving program's ``lax.scan``);
         returns the packed (B, 2 + 2n) float32 result ``[cost,
         used_fallback, col_of_row, v]`` on the device, for one copy to the
-        host (pipeline.py:440-489 of the JAX version)."""
+        host (pipeline.py:440-489 of the JAX version).  Nothing is read back
+        before that copy: ``last_solve_stats`` keeps each instance's loop
+        counts on the device until a caller reads them."""
         cost_t = _decode_transfer(payload)
         u, v = self._predict(cost_t)
         self.last_solve_stats = []

@@ -15,8 +15,8 @@ Port of ``lapgnn_tpu/solver/api.py``:
 ``TorchSolver`` and ``SeededTorchSolver`` take the places of the JAX
 package's ``JAXSolver`` and ``SeededJAXSolver`` (names "torch" and
 "seeded_torch"); they run on the GPU unless given ``device="cpu"``, in
-``dtype`` (float32 by default; on the GPU the ARR bid is kernel K4, in
-float32 or float64).
+``dtype`` (float32 by default; on the GPU the solver's loops are the
+kernels S1-S3, in float32 or float64).
 
 All return 0-based (rows, cols, cost) with rows = arange(n).
 """

@@ -6,10 +6,18 @@ exactness polish, and the cold solve built from them.  Names and signatures
 follow the JAX module; each function also takes an optional ``stats``
 (:class:`SolveStats`) that counts its loop iterations and host syncs.
 
-Each ``lax.while_loop`` of the JAX version is a Python ``while`` here, whose
-condition is read back with one host sync per iteration; every bound of the
-JAX loop is kept (``_bounded_augment_loop`` stops after n + 1 rounds, a sweep
-after n + 1 sweeps), so a poisoned input returns instead of hanging.  The
+On the card ``augment_all_sweep`` is one cooperative launch of kernel S1
+(``ops.cuda.augment_sweep``, ``csrc/augment.cu``): every round, sweep and
+flip on the device, as the JAX version's ``lax.while_loop``s run, with no
+read by the host; its loop counts stay on the device in ``SolveStats``
+until a caller reads them.  On the CPU, and on a row block of a
+``ShardedRows`` of more than one rank (whose every sweep needs a collective,
+which a kernel cannot make: the sharded path's own code, not a fallback),
+each ``lax.while_loop`` is a Python ``while`` whose condition is read back
+with one host sync per iteration (``_augment_all_sweep_eager``, also S1's
+plain version); every bound of the JAX loop is kept
+(``_bounded_augment_loop`` stops after n + 1 rounds, a sweep after n + 1
+sweeps), so a poisoned input returns instead of hanging.  There the
 pointer-chasing flip of the augmenting paths runs on the host over Python
 lists, with one device-to-host copy of ``(x, y, pred_row, cand)`` and one
 copy of ``(x, y)`` back per augmentation round.
@@ -37,11 +45,11 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops.cuda.augment import augment_sweep
 from ..ops.partition import WHOLE, RowPartition
 
 __all__ = [
@@ -73,25 +81,47 @@ class Matching(NamedTuple):
     v: torch.Tensor
 
 
-@dataclass
+# The loop counts the solver kernels keep on the device, in this order.
+DEVICE_COUNTS = ("greedy_rounds", "arr_rounds", "aug_rounds", "sweeps", "flip_steps")
+
+
 class SolveStats:
     """Loop counts of one solve, and its host syncs: each read of a device
-    value by the host (a loop condition, the flip's copies).  With ``timed``
-    each stage synchronises the current stream before and after itself (work
-    on other streams, such as an upload in flight, is not waited for) and
-    adds its host-clock time to ``stage_ms``; ``flip_ms`` is the host time
-    of the path flips, copies included, and is always kept."""
+    value by the host during the solve (a loop condition, the flips' copies
+    of the eager loops).  The kernels S1-S3 add their counts to
+    ``device_counts`` on the device; reading a count after the solve copies
+    them to the host once (not a sync of the solve).  With ``timed`` each
+    stage is timed: on the card by CUDA events recorded on the current
+    stream, read when ``stage_ms`` is, on the CPU by the host clock."""
 
-    greedy_rounds: int = 0
-    arr_rounds: int = 0
-    aug_rounds: int = 0
-    sweeps: int = 0
-    pops: int = 0
-    flip_steps: int = 0
-    host_syncs: int = 0
-    flip_ms: float = 0.0
-    timed: bool = False
-    stage_ms: Dict[str, float] = field(default_factory=dict)
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.pops = 0
+        self.host_syncs = 0
+        self._host = dict.fromkeys(DEVICE_COUNTS, 0)
+        self._device: Optional[torch.Tensor] = None
+        self._stage_ms: Dict[str, float] = {}
+        self._events: List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]] = []
+
+    def device_counts(self, device: torch.device) -> torch.Tensor:
+        """The (5,) int64 slots of ``DEVICE_COUNTS`` the kernels add to."""
+        if self._device is None:
+            self._device = torch.zeros(len(DEVICE_COUNTS), dtype=torch.int64, device=device)
+        return self._device
+
+    def _fold(self) -> None:
+        if self._device is not None:
+            for name, count in zip(DEVICE_COUNTS, self._device.tolist()):
+                self._host[name] += count
+            self._device = None
+
+    @property
+    def stage_ms(self) -> Dict[str, float]:
+        for name, start, end in self._events:
+            end.synchronize()
+            self._stage_ms[name] = self._stage_ms.get(name, 0.0) + start.elapsed_time(end)
+        self._events = []
+        return self._stage_ms
 
     def item(self, t: torch.Tensor):
         self.host_syncs += 1
@@ -111,21 +141,38 @@ class SolveStats:
         if not self.timed:
             yield
             return
-        _synchronize(device)
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                yield
+            finally:
+                end.record()
+                self._events.append((name, start, end))
+            return
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            _synchronize(device)
             ms = (time.perf_counter() - t0) * 1e3
-            self.stage_ms[name] = self.stage_ms.get(name, 0.0) + ms
+            self._stage_ms[name] = self._stage_ms.get(name, 0.0) + ms
 
 
+def _count_property(name: str) -> property:
+    def get(self: SolveStats) -> int:
+        self._fold()
+        return self._host[name]
+
+    def set_(self: SolveStats, value: int) -> None:
+        self._fold()
+        self._host[name] = value
+
+    return property(get, set_, doc=f"The solve's {name.replace('_', ' ')}.")
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
+for _name in DEVICE_COUNTS:
+    setattr(SolveStats, _name, _count_property(_name))
 
 
 def matching_cost(
@@ -153,7 +200,8 @@ def column_reduction(C: torch.Tensor, part: RowPartition = WHOLE) -> Matching:
         0, y0, iota, "amax"
     )
     y = torch.where(x[y0] == iota, y0, -1)
-    claims = torch.bincount(y0, minlength=n)
+    # each row's claims, counted without bincount's read of the largest index
+    claims = torch.zeros(n, dtype=INT, device=C.device).scatter_add_(0, y0, torch.ones_like(y0))
     unique_rows = (claims == 1) & (x >= 0)
     red = C - v[None, :]
     red_excl = torch.where(iota[None, :] == part.local(x)[:, None], float("inf"), red)
@@ -434,11 +482,9 @@ def _flip_disjoint_paths(
     ``cand`` columns: one copy of (x, y, pred_row, cand) to the host, the
     walk in Python, one copy of (x, y) back."""
     stats = SolveStats() if stats is None else stats
-    t0 = time.perf_counter()
     xs, ys, pred, cs = stats.to_host(torch.stack([x, y, pred_row.to(INT), cand.to(INT)]))
     stats.flip_steps += _flip_disjoint_paths_host(xs, ys, pred, cs)
     xy = stats.to_device([xs, ys], x)
-    stats.flip_ms += (time.perf_counter() - t0) * 1e3
     return xy[0], xy[1]
 
 
@@ -452,8 +498,22 @@ def augment_all_sweep(
     paths per round (jv.py:533): implicit row potentials, clamped reduced
     costs, sweeps from all free rows at once, the settled-set dual update
     v += min(d, delta) - delta, then the disjoint-path flip of every free
-    column within a few ulps of delta."""
+    column within a few ulps of delta.  A CUDA tensor whose partition holds
+    every row launches kernel S1 (or raises); a CPU tensor, or a row block
+    of several ranks, runs the eager loop."""
     stats = SolveStats() if stats is None else stats
+    if C.device.type == "cpu" or part.size > 1:
+        return _augment_all_sweep_eager(C, m, stats, part)
+    counts = stats.device_counts(C.device)[2:]
+    return Matching(*augment_sweep(C, m.col_of_row, m.row_of_col, m.v, counts))
+
+
+def _augment_all_sweep_eager(
+    C: torch.Tensor, m: Matching, stats: SolveStats, part: RowPartition = WHOLE
+) -> Matching:
+    """``augment_all_sweep`` as eager PyTorch, every loop condition read on
+    the host and the flips walked there: the CPU path, the sharded path and
+    S1's plain version."""
     n = C.shape[-1]
     inf = float("inf")
     eps8 = 8.0 * torch.finfo(C.dtype).eps
@@ -521,7 +581,8 @@ def lapjv_single(
     C: torch.Tensor, stats: Optional[SolveStats] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Solve one dense square LAP cold.  Returns (col_of_row, row_of_col,
-    cost).  On a GPU the matrix must be float32 (K4 runs the ARR bid)."""
+    cost).  On a GPU the matrix is float32 or float64 (the kernels S2 and
+    S1 run the ARR rounds and the augmentation)."""
     from .seeded import jacobi_arr  # local import: avoids a module cycle
 
     stats = SolveStats() if stats is None else stats

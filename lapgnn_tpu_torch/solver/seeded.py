@@ -6,16 +6,23 @@ gates with the cold fallback, Jacobi ARR, min-plus sweep augmentation and the
 exactness polish.  Exactly optimal whatever the seed; a bad seed only costs
 time.
 
-The bid of every Jacobi-ARR round is kernel K4 (``ops.cuda.two_min``): the
-per-row min1, argmin and min2 of C - v in one read of C, bit-identical to the
-three-pass form of the JAX version (seeded.py:199-202).  The rest of each
-round (the column-side scatters) and every other O(n^2) pass are plain
-PyTorch, as they are plain XLA in the JAX version.
-
-``lapjv_seeded_single`` computes ``column_reduction`` only when the gate
-chooses the cold fallback, where the JAX version computes it always and
-selects (seeded.py:335-340); the result is identical.  The batch solves
-instance by instance, as the JAX serving program does (pipeline.py:473).
+On the card, for a partition that holds every row, each loop is one
+cooperative launch of a hand-written kernel: the greedy rounds S3
+(``ops.cuda.greedy_match``), the Jacobi-ARR rounds S2 (``ops.cuda.arr_auction``,
+whose bid is K4's own device code) and the sweep augmentation S1
+(``solver.jv.augment_all_sweep``); the cold-fallback gate is a select on the
+device, as in the JAX version (seeded.py:305-340): ``column_reduction`` is
+computed always and each field of the start state picked by
+``torch.where``, so ``used_fallback`` is a device bool.  From the seed to
+the result the solve reads nothing back on the host.  On the CPU, and on a
+row block of a ``ShardedRows`` of more than one rank (whose every round
+needs a collective, which a kernel cannot make: the sharded path's own
+code, not a fallback), the loops are the eager ones, each condition read
+back on the host (``_greedy_tight_matching_eager``, ``_jacobi_arr_eager``
+with K4 as the bid); they are also S3's and S2's plain versions.  The
+batch solves instance by instance, as the JAX serving program does
+(pipeline.py:473); with nothing read between instances the launches queue
+back to back.
 
 Each phase takes the row partition ``part`` of ``solver.jv``: C may be one
 rank's block of rows (``parallel.sharded.ShardedRows``), while the matching
@@ -30,6 +37,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops.cuda.arr import arr_auction
+from ..ops.cuda.greedy_match import greedy_match
 from ..ops.cuda.twomin import two_min
 from ..ops.partition import WHOLE, RowPartition
 from .jv import (
@@ -110,8 +119,20 @@ def greedy_tight_matching(
     (seeded.py:99): every free row proposes its lowest available column in
     round 0 and its lowest-hash one later; each column accepts the lowest
     proposing row; until a round matches nothing.  ``tight`` holds
-    ``part``'s rows; x and y come back for every row."""
+    ``part``'s rows; x and y come back for every row.  A CUDA matrix whose
+    partition holds every row launches kernel S3 (or raises)."""
     stats = SolveStats() if stats is None else stats
+    if tight.device.type == "cpu" or part.size > 1:
+        return _greedy_tight_matching_eager(tight, stats, part)
+    return greedy_match(tight.contiguous(), stats.device_counts(tight.device)[0:1])
+
+
+def _greedy_tight_matching_eager(
+    tight: torch.Tensor, stats: SolveStats, part: RowPartition = WHOLE
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``greedy_tight_matching`` as eager PyTorch, each round's progress
+    read on the host: the CPU path, the sharded path and S3's plain
+    version."""
     n_loc, n = tight.shape
     dev = tight.device
     rows = torch.arange(part.offset, part.offset + n_loc, dtype=INT, device=dev)
@@ -149,17 +170,38 @@ def jacobi_arr(
 ) -> Matching:
     """Parallel (Jacobi) augmenting row reduction, an epsilon = 0 auction
     (seeded.py:163).  Each round every free row bids for its cheapest column
-    with the gap to its second cheapest (K4); each column takes the largest
-    gap (ties to the lowest row), lowers its potential by it and kicks its
-    previous owner.  Until a round wins nothing or ``max_rounds``."""
+    with the gap to its second cheapest; each column takes the largest gap
+    (ties to the lowest row), lowers its potential by it and kicks its
+    previous owner.  Until a round wins nothing or ``max_rounds``.  A CUDA
+    matrix whose partition holds every row launches kernel S2 (or raises)."""
     stats = SolveStats() if stats is None else stats
+    if C.device.type == "cpu" or part.size > 1:
+        return _jacobi_arr_eager(C, m, max_rounds, min_delta, stats, part)
+    counts = stats.device_counts(C.device)[1:2]
+    return Matching(*arr_auction(C, m.col_of_row, m.row_of_col, m.v, max_rounds, min_delta,
+                                 counts))
+
+
+def _jacobi_arr_eager(
+    C: torch.Tensor,
+    m: Matching,
+    max_rounds: int,
+    min_delta: float,
+    stats: SolveStats,
+    part: RowPartition = WHOLE,
+    bid=None,
+) -> Matching:
+    """``jacobi_arr`` as eager PyTorch, each round's progress read on the
+    host, the bid by ``bid`` (default K4, ``two_min``): the CPU path, the
+    sharded path and, with ``two_min_plain``, S2's plain version."""
+    bid_fn = two_min if bid is None else bid
     n_loc, n = C.shape
     dev = C.device
     rows = torch.arange(part.offset, part.offset + n_loc, dtype=INT, device=dev)
     x, y, v = m
     rnd, progressed = 0, True
     while rnd < max_rounds and progressed:
-        min1, min2, j1 = two_min(C, v)
+        min1, min2, j1 = bid_fn(C, v)
         j1 = j1.to(INT)
         delta = min2 - min1
         bid = (part.local(x) < 0) & (delta > min_delta) & torch.isfinite(min2)
@@ -233,18 +275,21 @@ def lapjv_seeded_single(
 
     with stats.stage("greedy", dev):
         x, y = greedy_tight_matching(tight, stats, part)
-        # the JAX version counts in float32, exact below 2^24 and far above
-        # both thresholds there
-        n_tight, n_free = stats.to_host(torch.stack([part.sum(tight.sum()), (x < 0).sum()]))
+
+    # The gates as a select (seeded.py:305-340): the JAX version counts in
+    # float32, exact below 2^24 and far above both thresholds there.
+    n_tight = part.sum(tight.sum()).to(torch.float32)
+    n_free = (x < 0).sum().to(torch.float32)
     density_bad = n_tight < _as_dtype(FALLBACK_DENSITY * n, torch.float32)
     free_bad = n_free > _as_dtype(free_rows_frac * n, torch.float32)
     use_fallback = {
         "density": density_bad,
         "free_rows": free_bad,
-        "both": density_bad and free_bad,
-        "never": False,
+        "both": density_bad & free_bad,
+        "never": torch.zeros((), dtype=torch.bool, device=dev),
     }[gate]
-    m = column_reduction(C, part) if use_fallback else Matching(x, y, v)
+    cold = column_reduction(C, part)
+    m = Matching(*(torch.where(use_fallback, c, w) for c, w in zip(cold, (x, y, v))))
 
     rounds = arr_rounds if arr_rounds is not None else max(64, n // 32)
     with stats.stage("arr", dev):
@@ -257,7 +302,7 @@ def lapjv_seeded_single(
         col_of_row=m.col_of_row,
         row_of_col=m.row_of_col,
         cost=matching_cost(C, m.col_of_row, part),
-        used_fallback=torch.full((), use_fallback, dtype=torch.bool, device=dev),
+        used_fallback=use_fallback,
         v=m.v,
     )
 

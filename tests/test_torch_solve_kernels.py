@@ -1,0 +1,565 @@
+"""The device solver's persistent kernels S1-S3 (``ops.cuda.augment``,
+``ops.cuda.arr``, ``ops.cuda.greedy_match``) and their routers.
+
+On the CPU: plain transcriptions of the kernels' own arithmetic (the
+column minimum by tiles, the sweep's stop test from per-block partials, the
+flips in the kernel's array order, the ARR auction's 64-bit keys, the greedy
+proposals' 64-bit words) against the plain versions; the cooperative launch
+geometry as a function of the SM count and the occupancy; the routing (a
+tensor off the CPU with a whole partition goes to the kernel wrappers, a row
+block of several ranks keeps the eager loops); ``SolveStats``' device
+counts; and the fallback gate as a select, against the JAX solver.
+
+The module imports no JAX (the JAX reference is imported inside a fixture
+and skips where JAX is missing), so its ``cuda`` cases run on the card:
+``python3 -m pytest tests/test_torch_solve_kernels.py -m cuda``.  There S1,
+S2 and S3 are held against their plain loops on the same card, and the
+whole seeded solve against the CPU: assignments, v bit for bit (NaN as one
+class) and every loop count.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from lapgnn_tpu_torch.data.generators import FAMILIES
+from lapgnn_tpu_torch.ops.cuda import arr, augment
+from lapgnn_tpu_torch.ops.cuda._lib import coop_blocks
+from lapgnn_tpu_torch.ops.partition import WHOLE, RowPartition
+from lapgnn_tpu_torch.solver import jv as tjv
+from lapgnn_tpu_torch.solver import seeded as tseeded
+
+# the module (the package's name of the same spelling is its wrapper)
+gm = importlib.import_module("lapgnn_tpu_torch.ops.cuda.greedy_match")
+
+INF, NAN = float("inf"), float("nan")
+
+
+def _cost(fam, n, seed):
+    return FAMILIES[fam](n, np.random.default_rng(seed)).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _same(a, b):
+    """Equal tensors, float bits included, every NaN one class."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a[~nan].view(bits), b[~nan].view(bits))
+
+
+# ------------------------------------------------- S1: the column minimum
+
+
+def _special_columns(seed, n=40, m=24, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    val = torch.from_numpy(rng.integers(0, 4, (n, m)).astype(np.float64)).to(dtype)
+    val[:, 0] = 0.0
+    val[5, 0] = -0.0  # equal to +0.0: the first row wins, with its sign
+    val[:, 1] = INF
+    val[:, 2] = torch.where(torch.arange(n) % 3 == 0, -INF, INF)
+    val[7, 3], val[30, 3] = NAN, NAN  # the first NaN wins
+    val[:, 4] = NAN
+    val[[3, 9], 5] = -5.0  # a tie below the rest
+    return val
+
+
+@pytest.mark.parametrize("tile", augment.TILES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_column_min_by_tiles_equals_torch_min(tile, dtype):
+    for seed in range(3):
+        val = _special_columns(seed, dtype=dtype)
+        got_v, got_i = augment.column_min_by_tiles(val, tile)
+        want_v, want_i = torch.min(val, dim=0)
+        assert torch.equal(got_i, want_i)
+        assert _same(got_v, want_v)
+        assert torch.signbit(got_v[0]) == torch.signbit(want_v[0])
+
+
+def test_column_min_by_tiles_fewer_rows_than_row_groups():
+    val = torch.tensor([[3.0, NAN, 1.0], [2.0, 0.0, 1.0]])
+    got_v, got_i = augment.column_min_by_tiles(val, 8)
+    want_v, want_i = torch.min(val, dim=0)
+    assert torch.equal(got_i, want_i) and _same(got_v, want_v)
+
+
+# ------------------------------------------------- S1: the sweep's stop test
+
+
+@pytest.mark.parametrize("blocks,tile", [(1, 8), (3, 8), (7, 16), (64, 32)])
+def test_sweep_stop_by_partials_equals_the_plain_test(blocks, tile):
+    rng = np.random.default_rng(blocks * 100 + tile)
+    n = 96
+    tol = 8.0 * torch.finfo(torch.float32).eps
+    for trial in range(40):
+        d = torch.from_numpy(rng.integers(0, 6, n).astype(np.float32) * 0.25)
+        d[rng.random(n) < 0.1] = INF
+        if trial % 7 == 0:
+            d[rng.integers(n)] = NAN
+        improve = torch.from_numpy(rng.random(n) < 0.2) & ~torch.isnan(d) & torch.isfinite(d)
+        free_col = torch.from_numpy(rng.random(n) < 0.3)
+        if trial % 5 == 0:
+            improve[:] = False
+        if trial % 9 == 0:
+            free_col[:] = False
+        dmin_free = torch.where(free_col, d, INF).amin()
+        thresh = dmin_free + tol * (1.0 + dmin_free.abs())
+        want = bool((improve & (d <= thresh)).any())
+        got, got_min = augment.sweep_stop_by_partials(d, improve, free_col, blocks, tile)
+        assert got == want, trial
+        assert _same(got_min, dmin_free)
+
+
+# ------------------------------------------------- S1: the flips
+
+
+def _chain_case():
+    """Rows 1..80 hold columns 0..79 (row r holds column r - 1), row 0 is
+    free, and both candidate sinks lead down the chain: 81 hops each
+    (tests/test_torch_solver.py's case)."""
+    n = 96
+    x = np.full(n, -1, np.int64)
+    y = np.full(n, -1, np.int64)
+    pred = np.zeros(n, np.int64)
+    for r in range(1, 81):
+        x[r], y[r - 1] = r - 1, r
+    pred[:80] = np.arange(80)
+    pred[[85, 90]] = 80
+    cand = np.zeros(n, bool)
+    cand[[85, 90]] = True
+    return x, y, pred, cand
+
+
+def _random_flip_case(seed, n=70):
+    """A partial matching, predecessors through matched rows or free rows,
+    and candidate free columns, some paths sharing rows."""
+    rng = np.random.default_rng(seed)
+    x = np.full(n, -1, np.int64)
+    y = np.full(n, -1, np.int64)
+    matched = rng.permutation(n)[: n - 8]
+    cols = rng.permutation(n)[: n - 8]
+    x[matched], y[cols] = cols, matched
+    pred = rng.integers(0, n, n)
+    cand = (y < 0) & (rng.random(n) < 0.8)
+    return x, y, pred, cand
+
+
+@pytest.mark.parametrize("case", ["chain", *[f"random{k}" for k in range(6)]])
+def test_flip_paths_by_arrays_equals_the_host_flip(case):
+    x, y, pred, cand = _chain_case() if case == "chain" else _random_flip_case(int(case[6:]))
+    xs, ys = x.tolist(), y.tolist()
+    want_steps = tjv._flip_disjoint_paths_host(xs, ys, pred.tolist(), cand.tolist())
+    xa, ya = x.copy(), y.copy()
+    got_steps = augment.flip_paths_by_arrays(xa, ya, pred, cand)
+    assert got_steps == want_steps
+    assert xa.tolist() == xs and ya.tolist() == ys
+    if case == "chain":  # both capped: the first sink's path flipped uncapped
+        assert got_steps == 64 + 64 + 81 and xa[0] == 0 and ya[85] == 80
+
+
+def test_flip_paths_by_arrays_past_a_ballot():
+    """Candidates in several 32-column chunks come lowest first."""
+    n = 100
+    x = np.full(n, -1, np.int64)
+    y = np.full(n, -1, np.int64)
+    pred = np.arange(n)[::-1].copy()
+    cand = np.zeros(n, bool)
+    cand[[3, 40, 77, 99]] = True
+    xs, ys = x.tolist(), y.tolist()
+    want = tjv._flip_disjoint_paths_host(xs, ys, pred.tolist(), cand.tolist())
+    assert augment.flip_paths_by_arrays(x, y, pred, cand) == want
+    assert x.tolist() == xs and y.tolist() == ys
+
+
+# ------------------------------------------------- S2: the auction's keys
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_best_bid_by_keys_equals_best_bid(dtype):
+    rng = np.random.default_rng(5)
+    n = 64
+    for trial in range(30):
+        gaps = torch.from_numpy(rng.integers(-2, 5, n).astype(np.float64) * 0.5).to(dtype)
+        gaps[rng.random(n) < 0.1] = INF
+        if trial % 4 == 0:
+            gaps[rng.integers(n)] = -0.0
+        cols = torch.from_numpy(rng.integers(0, n // 4, n)).to(torch.int64)
+        cols[rng.random(n) < 0.3] = n  # no bid
+        rows = torch.arange(n, dtype=torch.int64)
+        want_best, want_row = RowPartition().best_bid(cols, gaps, rows, n)
+        got_best, got_row = arr.best_bid_by_keys(cols, gaps, rows, n)
+        assert torch.equal(got_row, want_row), trial
+        assert torch.equal(got_best == want_best, torch.ones(n + 1, dtype=torch.bool)), trial
+
+
+def test_gap_keys_order_like_the_gaps():
+    g = torch.tensor([-INF, -3.5, -1e-30, -0.0, 0.0, 1e-30, 2.0, 3.5, INF], dtype=torch.float64)
+    k = arr.gap_keys(g)
+    assert (np.diff(k.astype(object)) >= 0).all()
+    assert k[3] == k[4] and (k > 0).all()
+
+
+# ------------------------------------------------- S3: the proposals
+
+
+@pytest.mark.parametrize("rnd", [0, 1, 2, 9])
+def test_proposals_by_keys_equal_the_plain_argmin(rnd):
+    rng = np.random.default_rng(rnd)
+    n = 64
+    avail = torch.from_numpy(rng.random((n, n)) < 0.1)
+    avail[3] = False
+    avail[4] = True
+    score = (torch.arange(n, dtype=torch.int32)[None, :].expand(n, n) if rnd == 0
+             else tseeded._hash_scores(n, rnd))
+    want = torch.where(avail, score, tseeded._INT32_MAX).argmin(1)
+    want = torch.where(avail.any(1), want, -1)
+    assert torch.equal(gm.proposals_by_keys(avail, rnd), want)
+
+
+# ------------------------------------------------- launch geometry
+
+
+def test_coop_blocks_by_sm_count_and_occupancy():
+    assert coop_blocks(8, 132, 10**6) == 264  # two a SM at most
+    assert coop_blocks(1, 132, 10**6) == 132
+    assert coop_blocks(3, 114, 10**6) == 228
+    assert coop_blocks(8, 132, 64) == 64  # no more than there is work for
+    assert coop_blocks(8, 132, 0) == 1
+    for bad in (0, -2):  # the card holds none, or a CUDA error
+        with pytest.raises(RuntimeError):
+            coop_blocks(bad, 132, 100)
+
+
+@pytest.mark.parametrize("n,itemsize,sms,occ,blocks,tile", [
+    (2048, 4, 132, 8, 132, 8),    # in L2: one block a SM; 128 tiles of 16 < 132
+    (2048, 4, 114, 8, 114, 16),
+    (2048, 8, 132, 8, 132, 8),    # 33.5 MB, still in L2
+    (8192, 4, 132, 2, 264, 16),   # beyond L2: two a SM; 256 tiles of 32 < 264
+    (8192, 4, 66, 2, 132, 32),
+    (8192, 4, 132, 1, 132, 32),   # the card holds one a SM
+    (512, 4, 132, 4, 64, 8),      # 64 tiles of 8
+    (7, 8, 132, 4, 1, 32),
+    (16384, 4, 132, 1, 132, 32),
+    (11622, 8, 132, 2, 264, 32),
+])
+@pytest.mark.parametrize("staged", [True, False])
+def test_augment_geometry(n, itemsize, sms, occ, blocks, tile, staged):
+    g = augment.augment_geometry(n, itemsize, sms, occ, staged)
+    assert (g.blocks, g.tile, g.threads) == (blocks, tile, 256)
+    assert g.smem_bytes == ((2 * itemsize + 4) * n if staged else 0)
+    assert -(-n // g.tile) >= g.blocks  # every block owns a tile
+
+
+def test_augment_geometry_limits():
+    """The rows' vectors are staged while they fit in a block's shared
+    memory (12 B a column in float32, 20 B in float64); above, the unstaged
+    layout takes every n, and only it."""
+    assert augment.augment_staged(19_370, 4) and not augment.augment_staged(19_371, 4)
+    assert augment.augment_staged(11_622, 8) and not augment.augment_staged(11_623, 8)
+    augment.augment_geometry(19_370, 4, 132, 1, True)
+    with pytest.raises(ValueError):
+        augment.augment_geometry(19_371, 4, 132, 1, True)
+    with pytest.raises(ValueError):
+        augment.augment_geometry(11_623, 8, 132, 1, True)
+    for n, itemsize in ((19_371, 4), (11_623, 8), (12_288, 8), (65_536, 4)):
+        g = augment.augment_geometry(n, itemsize, 132, 2, False)
+        assert (g.blocks, g.tile, g.smem_bytes) == (264, 32, 0)
+    with pytest.raises(RuntimeError):
+        augment.augment_geometry(2048, 4, 132, 0, True)
+
+
+def test_arr_and_greedy_blocks():
+    assert arr.arr_blocks(2048, 132, 8) == 256
+    assert arr.arr_blocks(100, 132, 8) == 13
+    assert gm.greedy_match_blocks(2048, 132, 3) == 256
+    assert gm.greedy_match_blocks(8192, 132, 1) == 132
+    with pytest.raises(ValueError):
+        gm.greedy_match_blocks(300_000, 132, 1)
+
+
+# ------------------------------------------------- routing and counts
+
+
+class _Rows2(RowPartition):
+    """A row partition of two ranks that holds every row (a stand-in for a
+    ``ShardedRows`` block, which needs a process group)."""
+
+    size = 2
+
+
+def _recorder(calls, name):
+    def record(*args):
+        calls.append(name)
+        raise _Routed
+
+    return record
+
+
+class _Routed(Exception):
+    pass
+
+
+def test_off_cpu_whole_partition_goes_to_the_kernels(monkeypatch):
+    """A tensor off the CPU (here "meta") with a whole partition reaches the
+    kernel wrappers, never the eager loops."""
+    calls = []
+    monkeypatch.setattr(tjv, "augment_sweep", _recorder(calls, "augment"))
+    monkeypatch.setattr(tseeded, "arr_auction", _recorder(calls, "arr"))
+    monkeypatch.setattr(tseeded, "greedy_match", _recorder(calls, "greedy"))
+    monkeypatch.setattr(tjv, "_augment_all_sweep_eager", _recorder(calls, "eager"))
+    for name in ("_jacobi_arr_eager", "_greedy_tight_matching_eager"):
+        monkeypatch.setattr(tseeded, name, _recorder(calls, "eager"))
+    C = torch.empty((8, 8), device="meta")
+    m = tjv.Matching(*(torch.empty(8, dtype=torch.int64, device="meta") for _ in range(2)),
+                     torch.empty(8, device="meta"))
+    stats = tjv.SolveStats()
+    monkeypatch.setattr(stats, "device_counts", lambda dev: torch.zeros(5, dtype=torch.int64))
+    for fn in (lambda: tjv.augment_all_sweep(C, m, stats),
+               lambda: tseeded.jacobi_arr(C, m, stats=stats),
+               lambda: tseeded.greedy_tight_matching(torch.empty((8, 8), dtype=torch.bool,
+                                                                 device="meta"), stats)):
+        with pytest.raises(_Routed):
+            fn()
+    assert calls == ["augment", "arr", "greedy"]
+
+
+def test_cpu_and_several_ranks_keep_the_eager_loops(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tjv, "augment_sweep", _recorder(calls, "kernel"))
+    monkeypatch.setattr(tseeded, "arr_auction", _recorder(calls, "kernel"))
+    monkeypatch.setattr(tseeded, "greedy_match", _recorder(calls, "kernel"))
+    C = _t(_cost("uniform", 16, 1))
+    for part in (WHOLE, _Rows2()):
+        stats = tjv.SolveStats()
+        x, y = tseeded.greedy_tight_matching(C < 0.2, stats, part)
+        m = tseeded.jacobi_arr(C, tjv.column_reduction(C), stats=stats, part=part)
+        m = tjv.augment_all_sweep(C, m, stats, part)
+        assert sorted(m.col_of_row.tolist()) == list(range(16))
+        assert stats.host_syncs > 0
+    assert calls == []
+
+
+def test_solve_stats_device_counts_fold_once():
+    stats = tjv.SolveStats()
+    stats.sweeps += 3
+    counts = stats.device_counts(torch.device("cpu"))
+    assert counts.tolist() == [0] * len(tjv.DEVICE_COUNTS)
+    counts += torch.tensor([1, 2, 3, 4, 5])
+    assert stats.device_counts(torch.device("cpu")) is counts
+    assert (stats.greedy_rounds, stats.arr_rounds, stats.aug_rounds, stats.sweeps,
+            stats.flip_steps) == (1, 2, 3, 7, 5)
+    assert stats.host_syncs == 0
+    stats.device_counts(torch.device("cpu"))[3] += 10  # a fresh set of slots
+    assert stats.sweeps == 17
+
+
+def test_plain_wrappers_add_their_counts():
+    C = _t(_cost("uniform", 24, 2))
+    counts = torch.zeros(5, dtype=torch.int64)
+    x, y = gm.greedy_match(C < 0.15, counts[0:1])
+    m0 = tjv.column_reduction(C)
+    xa, ya, va = arr.arr_auction(C, *m0, 32, 0.0, counts[1:2])
+    xs, ys, vs = augment.augment_sweep(C, xa, ya, va, counts[2:])
+    stats = tjv.SolveStats()
+    ex, ey = tseeded.greedy_tight_matching(C < 0.15, stats)
+    em = tseeded.jacobi_arr(C, m0, max_rounds=32, stats=stats)
+    es = tjv.augment_all_sweep(C, em, stats)
+    assert torch.equal(x, ex) and torch.equal(y, ey)
+    assert all(_same(a, b) for a, b in zip((xa, ya, va), em))
+    assert all(_same(a, b) for a, b in zip((xs, ys, vs), es))
+    assert counts.tolist() == [stats.greedy_rounds, stats.arr_rounds, stats.aug_rounds,
+                               stats.sweeps, stats.flip_steps]
+
+
+# ------------------------------------------------- the gate as a select
+
+
+@pytest.fixture(scope="module")
+def jax_seeded():
+    """The JAX solver, jitted per gate (imported here, so that the module
+    runs where JAX is missing)."""
+    jax = pytest.importorskip("jax")
+    pytest.importorskip("lapgnn_tpu")
+    from lapgnn_tpu.solver import seeded as jseeded
+
+    return jax.jit(jseeded.lapjv_seeded_single, static_argnames=("gate",))
+
+
+@pytest.fixture(scope="module")
+def gate_cases():
+    """The 32 seeded cases of tests/test_torch_solver.py: four families, a
+    min-trick and a garbage seed each (run under four gates)."""
+    out = {}
+    for k, fam in enumerate(["uniform", "noisy_linear", "sparse", "tie"]):
+        C = FAMILIES[fam](64, np.random.default_rng(30 + k)).astype(np.float32)
+        rng = np.random.default_rng(40 + k)
+        u = (C.min(1) + rng.normal(0, 0.02, 64)).astype(np.float32)
+        out[(fam, "min_trick")] = (C, u, (C - u[:, None]).min(0))
+        out[(fam, "garbage")] = (C, rng.normal(0, 100, 64).astype(np.float32),
+                                 rng.normal(0, 100, 64).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("gate", ["density", "free_rows", "both", "never"])
+def test_gate_select_matches_jax_on_the_seeded_cases(jax_seeded, gate_cases, gate):
+    import jax.numpy as jnp
+
+    fired = []
+    for key, (C, u, v) in gate_cases.items():
+        want = jax_seeded(jnp.asarray(C), jnp.asarray(u), jnp.asarray(v), gate=gate)
+        got = tseeded.lapjv_seeded_single(_t(C), _t(u), _t(v), gate=gate)
+        assert got.used_fallback.dtype == torch.bool and got.used_fallback.ndim == 0
+        assert bool(got.used_fallback) == bool(want.used_fallback), key
+        np.testing.assert_array_equal(got.col_of_row.numpy(), np.asarray(want.col_of_row))
+        np.testing.assert_array_equal(got.row_of_col.numpy(), np.asarray(want.row_of_col))
+        np.testing.assert_array_equal(got.v.numpy().view(np.uint32),
+                                      np.asarray(want.v).view(np.uint32))
+        fired.append(bool(got.used_fallback))
+    # the garbage seed on uniform fires every gate but "never"
+    assert fired[1] == (gate != "never")
+
+
+@pytest.mark.parametrize("gate", ["density", "free_rows", "both", "never"])
+def test_gate_select_start_state(gate_cases, gate, monkeypatch):
+    """The state ARR starts from is the cold one field by field where the
+    gate fires and the warm one elsewhere."""
+    C, u, v = gate_cases[("uniform", "garbage")]
+    seen = {}
+    real = tseeded.jacobi_arr
+
+    def spy(C_, m, **kw):
+        seen["m"] = m
+        return real(C_, m, **kw)
+
+    monkeypatch.setattr(tseeded, "jacobi_arr", spy)
+    res = tseeded.lapjv_seeded_single(_t(C), _t(u), _t(v), gate=gate)
+    cold = tjv.column_reduction(_t(C))
+    if gate == "never":
+        assert not bool(res.used_fallback)
+        assert not _same(seen["m"].v, cold.v)
+    else:
+        assert bool(res.used_fallback)
+        assert all(_same(a, b) for a, b in zip(seen["m"], cold))
+
+
+# ------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _poisoned(C, kind):
+    C = C.copy()
+    if kind == "nan_row":
+        C[3, :] = np.nan
+    elif kind == "inf_row":
+        C[5, :] = np.inf
+    return C
+
+
+def _states(C, u=None, v=None):
+    """The inputs the seeded solve hands S3, S2 and S1, on C's device, from
+    the CPU's plain loops."""
+    Ct = _t(C)
+    n = C.shape[0]
+    u = _t(C.min(1) if u is None else u)
+    v = (Ct - u[:, None]).amin(0) if v is None else _t(v)
+    u = (Ct - v[None, :]).amin(1)
+    tight = (Ct - u[:, None] - v[None, :]).abs() <= 1e-5
+    x, y = tseeded.greedy_tight_matching(tight)
+    m = tjv.Matching(x, y, v)
+    after_arr = tseeded.jacobi_arr(Ct, m, max_rounds=max(64, n // 32))
+    return tight, m, after_arr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "nan_row", "inf_row"])
+@pytest.mark.parametrize("fam,n", [("uniform", 33), ("uniform", 512), ("tie", 256),
+                                   ("sparse", 300), ("noisy_linear", 1024)])
+def test_kernels_match_plain_loops_on_card(cuda, fam, n, kind):
+    C = _poisoned(_cost(fam, n, 60 + n), kind)
+    tight, m, after_arr = _states(C)
+    Cd = _t(C).to(cuda)
+    on = lambda t: t.to(cuda)  # noqa: E731
+    k0, p0 = (torch.zeros(5, dtype=torch.int64, device=cuda) for _ in range(2))
+    before = (gm.greedy_match.launches, arr.arr_auction.launches, augment.augment_sweep.launches)
+    got = gm.greedy_match(on(tight), k0[0:1])
+    want = gm.greedy_match_plain(on(tight), p0[0:1])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    rounds = max(64, n // 32)
+    got = arr.arr_auction(Cd, *map(on, m), rounds, 0.0, k0[1:2])
+    want = arr.arr_auction_plain(Cd, *map(on, m), rounds, 0.0, p0[1:2])
+    assert all(_same(a, b) for a, b in zip(got, want))
+    got = augment.augment_sweep(Cd, *map(on, after_arr), k0[2:])
+    want = augment.augment_sweep_plain(Cd, *map(on, after_arr), p0[2:])
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want))
+    assert torch.equal(k0, p0)
+    after = (gm.greedy_match.launches, arr.arr_auction.launches, augment.augment_sweep.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fam,n,kind", [("uniform", 512, "plain"), ("tie", 256, "plain"),
+                                        ("uniform", 300, "nan_row"), ("sparse", 300, "inf_row")])
+def test_unstaged_layout_matches_plain_loop_on_card(cuda, fam, n, kind, dtype):
+    """S1's layout for the n whose rows' vectors do not fit in shared memory
+    (u, x and e read from device memory through L2), forced at a size where
+    the staged one fits: x, y, v and the counts equal the plain loop's."""
+    C = _poisoned(_cost(fam, n, 80 + n), kind).astype(dtype)
+    _, _, after_arr = _states(C)
+    Cd = _t(C).to(cuda)
+    state = [t.to(cuda) for t in after_arr]
+    k, p = (torch.zeros(3, dtype=torch.int64, device=cuda) for _ in range(2))
+    got = augment._augment(Cd, *state, k, staged=False)
+    want = augment.augment_sweep_plain(Cd, *state, p)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want))
+    assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fam", ["uniform", "noisy_linear", "sparse", "tie"])
+def test_seeded_solve_on_card_equals_cpu(cuda, fam, dtype):
+    n = 512
+    C = _cost(fam, n, 70)
+    u = C.min(1)
+    v = (C - u[:, None]).min(0)
+    args = [torch.from_numpy(a).to(dtype) for a in (C, u, v)]
+    st_card, st_cpu = tjv.SolveStats(), tjv.SolveStats()
+    card = tseeded.lapjv_seeded_single(*(a.to(cuda) for a in args), gate="both", stats=st_card)
+    cpu = tseeded.lapjv_seeded_single(*args, gate="both", stats=st_cpu)
+    for field in ("col_of_row", "row_of_col", "v", "used_fallback"):
+        assert _same(getattr(card, field).cpu(), getattr(cpu, field)), field
+    assert st_card.host_syncs == 0
+    for name in tjv.DEVICE_COUNTS:
+        assert getattr(st_card, name) == getattr(st_cpu, name), name
+
+
+@pytest.mark.cuda
+def test_kernels_raise_on_an_unsupported_dtype(cuda):
+    C = torch.rand((16, 16), device=cuda, dtype=torch.float16)
+    x = torch.full((16,), -1, dtype=torch.int64, device=cuda)
+    counts = torch.zeros(5, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        augment.augment_sweep(C, x, x, C[0], counts[2:])
+    with pytest.raises(TypeError):
+        arr.arr_auction(C, x, x, C[0], 4, 0.0, counts[1:2])
+    with pytest.raises(TypeError):
+        gm.greedy_match(C, counts[0:1])

@@ -18,8 +18,10 @@ Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
      (one ``nvcc`` per ``csrc/*.cu``) and the native host solver (``g++``),
      built together from the checkout into ``build/``; each kernel's
-     registers and spills (a spill fails the phase), and how many of K1 /
-     K2's thread block clusters the card holds at once (none fails it).
+     registers, shared memory and spills (a spill fails the phase), S1's
+     static shared memory against what its resident layout's limit assumes
+     (more fails it), and how many of K1 / K2's thread block clusters the
+     card holds at once (none fails it).
   2. Kernels against their plain PyTorch versions at n = 1000, 2048 and 8192
      on a (uniform, tie) batch of two: K1 column min, K2 min-trick and K4
      two-min must match bit for bit (K4 also on rows with +-inf and NaN; K1
@@ -57,8 +59,10 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      device-to-host copy (torch.profiler).  Per instance: the certificate's
      route (raw, repair or polish), predict, device-solve and certify times,
      and the solver's loop counts.
-  5. The port's device solver from the same matrix and seeds three ways: on
-     the card through S1-S3, on the card through their plain versions (the
+  5. The port's device solver from the same matrix and seeds four ways: on
+     the card through S1-S3 (S1 in its default layout: resident at n = 512
+     and 2048 in float32 and at 1024 in float64), again with S1 forced to
+     its staged layout, on the card through their plain versions (the
      eager loops), and on the CPU (a spawned pool that starts first), at
      n = 512 and 2048 on the four families and on uniform with a NaN row
      and with an all-+inf row (float32, min-trick seeds), on uniform and tie
@@ -201,7 +205,13 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      of a uniform matrix hands them (CUDA events, L2 flushed) beside their
      plain loops (host clock) and their bounds from this run's loop counts
      (a matrix that fits in L2 read once from device memory, the rest by
-     its operations; ``_solver_bound_ms``).
+     its operations; ``_solver_bound_ms``; S1's from the rows its sweeps
+     must read, counted by its plain loop run over the changed rows, and
+     beside it the bound over every row of every sweep,
+     ``bound_every_row_ms``).  S1 at 2048 also with its staged layout
+     forced and its resident tile loaded without TMA, beside its sync
+     floor: the sweeps times one grid barrier of ``csrc/grid_barrier.cuh``,
+     timed alone on S1's grid (with and without the stop test's words).
 
 Output: a JSON line per phase, then the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -366,8 +376,9 @@ def _bound_ms(name: str, B: int, n: int, m: int, itemsize: int = 4):
 def _solver_bound_ms(name: str, elements: int, n: int, itemsize: int = 4):
     """Least time for one call of a solver kernel on these inputs, from the
     matrix elements this run's data needs it to read: S1 reads C once a
-    sweep (sweeps x n^2) and does about five float operations an element
-    (two subtracts, the clamp, the add, the compare); S2 reads the free
+    round and, each sweep, the rows whose e changed (``_s1_rows_read``),
+    and does about five float operations an element (two subtracts, the
+    clamp, the add, the compare); S2 reads the free
     rows of C each round (K4's subtract and two compares an element); S3
     reads the free rows of the bool tight matrix each round (integer work
     the rate table does not cover: bytes only).  While the (n, n) matrix
@@ -417,7 +428,27 @@ def phase_build(torch, strict=True):
         raise AssertionError(f"kernels spill registers: {spills}")
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
            "per_library_seconds": seconds,
+           "augment_static_smem": _augment_static_smem(strict),
            "colmin_max_active_clusters": _colmin_cluster_occupancy(strict)})
+
+
+def _augment_static_smem(strict):
+    """S1's static shared memory a block in each layout and type, which its
+    resident layout's limit (``augment_resident``) must not undercount."""
+    from lapgnn_tpu_torch.ops.cuda._lib import KERNEL_LIBS
+    from lapgnn_tpu_torch.ops.cuda.augment import LAYOUTS, resident_static_smem
+
+    lib = KERNEL_LIBS["augment"].load()
+    out = {}
+    for f64, itemsize in ((0, 4), (1, 8)):
+        for code, layout in enumerate(LAYOUTS):
+            got = lib.lapgnn_augment_static_smem(f64, code)
+            out[f"{layout}_{'float64' if f64 else 'float32'}"] = got
+            if strict and not 0 < got <= resident_static_smem(itemsize):
+                raise AssertionError(f"augment {layout} f64={f64}: {got} B of static shared "
+                                     f"memory, above the {resident_static_smem(itemsize)} "
+                                     "the resident limit assumes")
+    return out
 
 
 def _colmin_cluster_occupancy(strict):
@@ -1338,6 +1369,14 @@ def _vs_cpu_case(n, case, seed):
     return C, u, v
 
 
+def _s1_layout(n, C):
+    """The layout S1 takes by default for C."""
+    from lapgnn_tpu_torch.ops.cuda._lib import sm_count
+    from lapgnn_tpu_torch.ops.cuda.augment import augment_layout
+
+    return augment_layout(n, C.element_size(), sm_count(C.device))
+
+
 def _cpu_solve(job):
     """(n, case, seed, threads, (C, u, v) or None) -> the port's seeded solve
     of the case (of the arrays given, else ``_vs_cpu_case``'s) on the CPU: a
@@ -1355,6 +1394,20 @@ def _cpu_solve(job):
     return {"x": res.col_of_row, "y": res.row_of_col, "v": res.v,
             "used_fallback": bool(res.used_fallback),
             "counts": {k: getattr(st, k) for k in DEVICE_COUNTS}}
+
+
+@contextlib.contextmanager
+def _s1_staged():
+    """The seeded solve's S1 in its staged layout, where the resident one
+    would run."""
+    import lapgnn_tpu_torch.solver.jv as jv_mod
+    from lapgnn_tpu_torch.ops.cuda.augment import _augment
+
+    def staged(C, x, y, v, counts):
+        return _augment(C, x, y, v, counts, layout="staged")
+
+    with _wrapped(jv_mod, "augment_sweep", lambda _: staged):
+        yield
 
 
 @contextlib.contextmanager
@@ -1397,13 +1450,14 @@ def _augment_unstaged(torch, seed):
     x, y, v and the counts bit for bit; each side's host-clock ms and the
     bound from this run's sweeps."""
     from lapgnn_tpu_torch.ops.cuda import augment as augment_mod
-    from lapgnn_tpu_torch.ops.cuda.augment import _augment, augment_sweep_plain, augment_staged
+    from lapgnn_tpu_torch.ops.cuda._lib import sm_count
+    from lapgnn_tpu_torch.ops.cuda.augment import _augment, augment_layout, augment_sweep_plain
 
     out = {}
     for n, dtype, forced in AUGMENT_UNSTAGED:
         dt = getattr(torch, dtype)
         C = _batch(torch, n, seed + 11 * n, fams=("uniform",))[0].to(dt)
-        if augment_staged(n, C.element_size()) != forced:
+        if (augment_layout(n, C.element_size(), sm_count(C.device)) != "unstaged") != forced:
             raise AssertionError(f"augment_unstaged: n = {n} {dtype} is not the case meant")
         _, _, after = _solver_inputs(torch, C)
         runs = {}
@@ -1413,7 +1467,7 @@ def _augment_unstaged(torch, seed):
             before = augment_mod.augment_sweep.launches
             t0 = time.perf_counter()
             if how == "kernel":
-                got = (_augment(C, *after, counts, staged=False) if forced
+                got = (_augment(C, *after, counts, layout="unstaged") if forced
                        else augment_mod.augment_sweep(C, *after, counts))
             else:
                 got = augment_sweep_plain(C, *after, counts)
@@ -1483,11 +1537,13 @@ def phase_device_vs_cpu(torch, pipe, seed):
             arrays = given.get((n, case)) or _vs_cpu_case(n, case, seed)
             C, u, v = (torch.from_numpy(a).cuda() for a in arrays)
             runs = {}
-            for how in ("kernels", "plain"):
+            for how in ("kernels", "kernels_s1_staged", "plain"):
                 st = SolveStats()
                 with contextlib.ExitStack() as stack:
                     if how == "plain":
                         stack.enter_context(_plain_solver_loops())
+                    elif how == "kernels_s1_staged":
+                        stack.enter_context(_s1_staged())
                     with torch.inference_mode():
                         res = lapjv_seeded_single(C, u, v, gate="both", stats=st)
                     torch.cuda.synchronize()
@@ -1503,6 +1559,9 @@ def phase_device_vs_cpu(torch, pipe, seed):
                 err = max(err, float((runs["kernels"]["v"] - runs["plain"]["v"])[fin].abs().max()))
             report[f"{case}_{n}"] = {"kernels_vs_plain_differ": _same_solve(torch, runs["kernels"],
                                                                              runs["plain"]),
+                                     "s1_staged_vs_plain_differ": _same_solve(
+                                         torch, runs["kernels_s1_staged"], runs["plain"]),
+                                     "s1_layout": _s1_layout(n, C),
                                      "counts": runs["kernels"]["counts"],
                                      "used_fallback": runs["kernels"]["used_fallback"]}
         launches = _read_launches()
@@ -1513,11 +1572,12 @@ def phase_device_vs_cpu(torch, pipe, seed):
     finally:
         pool.shutdown(cancel_futures=True)
     bad = {k: r for k, r in report.items()
-           if r["kernels_vs_plain_differ"] or r["card_vs_cpu_differ"]}
+           if r["kernels_vs_plain_differ"] or r["s1_staged_vs_plain_differ"]
+           or r["card_vs_cpu_differ"]}
     if bad:
         raise AssertionError(f"device_vs_cpu: the solves disagree: {bad}")
     for k in SOLVER_KERNELS:
-        if launches[k] < len(cases):
+        if launches[k] < len(cases) * (2 if k == "augment_sweep" else 1):
             raise AssertionError(f"device_vs_cpu: {k} launched {launches[k]} times")
     _emit({"phase": "device_vs_cpu", "n": list(DEVICE_VS_CPU_N), "cases": report,
            "augment_unstaged": unstaged, "cpu_workers": workers,
@@ -3856,6 +3916,7 @@ def _solver_times(torch, C, flush, reps):
     tight, start, after = _solver_inputs(torch, C)
     rounds = max(64, n // 32)
     free_greedy, free_arr = _free_rows_a_round(torch, C, tight, start, rounds)
+    s1_rows = _s1_rows_read(torch, C, after)
     calls = {
         "greedy_match": (lambda c: greedy_match(tight, c[0:1]),
                          lambda c: greedy_match_plain(tight, c[0:1]), 0, 1),
@@ -3876,7 +3937,7 @@ def _solver_times(torch, C, flush, reps):
         count = int(counts[slot])
         scratch = torch.zeros(5, dtype=torch.int64, device=C.device)
         rows_read = {"greedy_match": sum(free_greedy), "arr_auction": sum(free_arr),
-                     "augment_sweep": count * n}[name]
+                     "augment_sweep": s1_rows["rows_read"]}[name]
         bound, by, every_read = _solver_bound_ms(name, rows_read * n, n, itemsize)
         out[name] = {
             "ms": _time_ms(torch, lambda: kern(scratch), reps, flush),
@@ -3888,7 +3949,91 @@ def _solver_times(torch, C, flush, reps):
                      "augment_sweep": "sweeps"}[name],
             "launches_a_call": launched,
         }
+    s1 = out["augment_sweep"]
+    if s1["loop_count"] != s1_rows["sweeps"]:
+        raise AssertionError(f"S1's sweeps {s1['loop_count']} != its plain loop's "
+                             f"{s1_rows['sweeps']}")
+    # the bound if every sweep read every row
+    s1["bound_every_row_ms"], s1["bound_every_row_by"], _ = _solver_bound_ms(
+        "augment_sweep", s1["loop_count"] * n * n, n, 4)
+    s1["changed_rows"] = s1_rows["changed_rows"]
+    s1.update(_s1_layouts(torch, C, after, flush, reps))
     return out
+
+
+def _s1_rows_read(torch, C, after):
+    """The matrix rows S1 must read on the state ``after``: every row once a
+    round (red) and, each sweep, the rows whose e changed since the last
+    one (the rest cannot improve a column), counted by the plain loop on the
+    card with its sweeps replaced by their transcription over the changed
+    rows (``augment.sweeps_by_frontier``), which must give the plain loop's
+    result.  Returns the rows read, the changed rows and the sweeps."""
+    import lapgnn_tpu_torch.solver.jv as jv_mod
+    from lapgnn_tpu_torch.ops.cuda.augment import augment_sweep_plain, sweeps_by_frontier
+
+    changed = []
+
+    def frontier(red, free_row, x_safe, d0, pred0, max_sweeps, free_col=None, stats=None,
+                 part=None):
+        d, pred, sweeps = sweeps_by_frontier(red, free_row, x_safe, d0, pred0, free_col,
+                                             max_sweeps, changed)
+        stats.sweeps += sweeps
+        return d, pred
+
+    counts = torch.zeros(3, dtype=torch.int64, device=C.device)
+    with _wrapped(jv_mod, "_sweep_shortest_paths", lambda _: frontier):
+        got = augment_sweep_plain(C, *after, counts)
+    want = augment_sweep_plain(C, *after, torch.zeros(3, dtype=torch.int64, device=C.device))
+    differ = _same_solve(torch, {"x": got[0], "y": got[1], "v": got[2], "used_fallback": False,
+                                 "counts": {}},
+                         {"x": want[0], "y": want[1], "v": want[2], "used_fallback": False,
+                          "counts": {}})
+    if differ:
+        raise AssertionError(f"S1's sweeps over the changed rows differ from the plain loop: "
+                             f"{differ}")
+    rounds, sweeps = int(counts[0]), int(counts[1])
+    n = C.shape[0]
+    return {"rows_read": rounds * n + sum(changed), "changed_rows": sum(changed),
+            "sweeps": sweeps}
+
+
+def _s1_layouts(torch, C, after, flush, reps):
+    """S1's layout on C; where it is the resident one, S1 again with its
+    staged layout forced and with its tile loaded by coalesced loads (CUDA
+    events, L2 flushed), and the sweeps' sync floor: S1's sweeps on this
+    state times one grid barrier timed alone on S1's grid
+    (``augment.barrier_bench``, median of 5 launches of 20,000 barriers),
+    with and without the stop test's atomics, reset and read."""
+    from lapgnn_tpu_torch.ops.cuda._lib import sm_count
+    from lapgnn_tpu_torch.ops.cuda.augment import (_augment, augment_geometry, augment_layout,
+                                                   barrier_bench)
+
+    n = C.shape[0]
+    layout = augment_layout(n, C.element_size(), sm_count(C.device))
+    if layout != "resident":
+        return {"layout": layout}
+    counts = torch.zeros(3, dtype=torch.int64, device=C.device)
+    _augment(C, *after, counts)
+    sweeps = int(counts[1])
+    scratch = torch.zeros(3, dtype=torch.int64, device=C.device)
+    g = augment_geometry(n, C.element_size(), sm_count(C.device), 1, "resident")
+    iters = 20_000
+    per_barrier = {}
+    for payload in (False, True):
+        ms = _time_ms(torch, lambda: barrier_bench(C.device, g, iters, payload), 5, flush)
+        per_barrier[payload] = ms / iters
+    return {
+        "layout": layout, "blocks": g.blocks, "tile": g.tile,
+        "staged_ms": _time_ms(torch, lambda: _augment(C, *after, scratch, layout="staged"),
+                              reps, flush),
+        "resident_loads_ms": _time_ms(
+            torch, lambda: _augment(C, *after, scratch, layout="resident", tma=False), reps,
+            flush),
+        "barrier_us": per_barrier[False] * 1e3,
+        "barrier_with_stop_words_us": per_barrier[True] * 1e3,
+        "sync_floor_ms": sweeps * per_barrier[False],
+        "sync_floor_with_stop_words_ms": sweeps * per_barrier[True],
+    }
 
 
 def phase_times(torch, seed):

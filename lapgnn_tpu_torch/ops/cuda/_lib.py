@@ -81,13 +81,19 @@ def _bind_greedy(lib: ctypes.CDLL) -> None:
 
 def _bind_augment(lib: ctypes.CDLL) -> None:
     lib.lapgnn_augment_occupancy.restype = _I
-    lib.lapgnn_augment_occupancy.argtypes = [_I, _I, _I]
+    lib.lapgnn_augment_occupancy.argtypes = [_I, _I, _I, _I]
+    lib.lapgnn_augment_static_smem.restype = _I
+    lib.lapgnn_augment_static_smem.argtypes = [_I, _I]
     lib.lapgnn_augment_work_bytes.restype = _LL
     lib.lapgnn_augment_work_bytes.argtypes = [_I, _I, _I]
     lib.lapgnn_augment.restype = _I
-    lib.lapgnn_augment.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP]
+    lib.lapgnn_augment.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]
     lib.lapgnn_augment_f64.restype = _I
-    lib.lapgnn_augment_f64.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _D, _VP]
+    lib.lapgnn_augment_f64.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _D, _VP]
+    lib.lapgnn_augment_barrier_work_bytes.restype = _LL
+    lib.lapgnn_augment_barrier_work_bytes.argtypes = []
+    lib.lapgnn_augment_barrier_bench.restype = _I
+    lib.lapgnn_augment_barrier_bench.argtypes = [_I, _I, _I, _I, _VP, _VP]
 
 
 def _bind_arr(lib: ctypes.CDLL) -> None:
@@ -123,7 +129,8 @@ KERNEL_LIBS: Dict[str, SharedLibrary] = {
     ),
     "greedy": SharedLibrary(CSRC / "greedy.cu", "kernels", _nvcc_command, _bind_greedy),
     "augment": SharedLibrary(
-        CSRC / "augment.cu", "kernels", _SOLVER_FLAGS, _bind_augment, deps=[_TWOMIN_H]
+        CSRC / "augment.cu", "kernels", _SOLVER_FLAGS, _bind_augment,
+        deps=[_TWOMIN_H, CSRC / "grid_barrier.cuh"],
     ),
     "arr": SharedLibrary(CSRC / "arr.cu", "kernels", _SOLVER_FLAGS, _bind_arr, deps=[_TWOMIN_H]),
     "greedy_match": SharedLibrary(

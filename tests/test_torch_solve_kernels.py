@@ -2,18 +2,20 @@
 ``ops.cuda.arr``, ``ops.cuda.greedy_match``) and their routers.
 
 On the CPU: plain transcriptions of the kernels' own arithmetic (the
-column minimum by tiles, the sweep's stop test from per-block partials, the
-flips in the kernel's array order, the ARR auction's 64-bit keys, the greedy
+column minimum by tiles, staged and resident, the sweep's stop test from
+order-preserving keys, the flips in the kernel's array order, the ARR auction's 64-bit keys, the greedy
 proposals' 64-bit words) against the plain versions; the cooperative launch
-geometry as a function of the SM count and the occupancy; the routing (a
+geometry and S1's layouts as a function of n, the type, the SM count and
+the occupancy; the routing (a
 tensor off the CPU with a whole partition goes to the kernel wrappers, a row
 block of several ranks keeps the eager loops); ``SolveStats``' device
 counts; and the fallback gate as a select, against the JAX solver.
 
 The module imports no JAX (the JAX reference is imported inside a fixture
 and skips where JAX is missing), so its ``cuda`` cases run on the card:
-``python3 -m pytest tests/test_torch_solve_kernels.py -m cuda``.  There S1,
-S2 and S3 are held against their plain loops on the same card, and the
+``python3 -m pytest tests/test_torch_solve_kernels.py -m cuda``.  There S1 (in
+each of its layouts), S2 and S3 are held against their plain loops on the
+same card, and the
 whole seeded solve against the CPU: assignments, v bit for bit (NaN as one
 class) and every loop count.
 """
@@ -93,11 +95,38 @@ def test_column_min_by_tiles_fewer_rows_than_row_groups():
     assert torch.equal(got_i, want_i) and _same(got_v, want_v)
 
 
+def test_column_min_by_resident_tiles_fewer_rows_than_row_groups():
+    val = torch.tensor([[3.0, NAN, 1.0], [2.0, 0.0, 1.0]])
+    got_v, got_i = augment.column_min_by_tiles(val, 8, resident=True)
+    want_v, want_i = torch.min(val, dim=0)
+    assert _same(got_v, want_v)
+    # the resident sweep never reads the row of a NaN minimum
+    assert torch.equal(got_i[[0, 2]], want_i[[0, 2]])
+
+
+@pytest.mark.parametrize("tile", [8, 11, 16, 19, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_column_min_by_resident_tiles_equals_torch_min(tile, dtype):
+    """The resident layout's sweep (min(256 / w, n) row groups, any width
+    w, a strict compare in each, NaN columns by the round's flag): the
+    values of torch.min, and its rows wherever the minimum is neither NaN
+    nor +inf (those never improve d, so their rows are never read)."""
+    for seed in range(3):
+        for n in (40, 31):  # 31 < 256 / 8: as many row groups as rows
+            val = _special_columns(seed, n=n, dtype=dtype)
+            got_v, got_i = augment.column_min_by_tiles(val, tile, resident=True)
+            want_v, want_i = torch.min(val, dim=0)
+            assert _same(got_v, want_v)
+            used = ~torch.isnan(want_v) & (want_v != INF)
+            assert torch.equal(got_i[used], want_i[used])
+            assert torch.signbit(got_v[0]) == torch.signbit(want_v[0])
+
+
 # ------------------------------------------------- S1: the sweep's stop test
 
 
-@pytest.mark.parametrize("blocks,tile", [(1, 8), (3, 8), (7, 16), (64, 32)])
-def test_sweep_stop_by_partials_equals_the_plain_test(blocks, tile):
+@pytest.mark.parametrize("blocks,tile", [(1, 8), (3, 8), (7, 16), (64, 32), (6, 16), (9, 11)])
+def test_sweep_stop_by_keys_equals_the_plain_test(blocks, tile):
     rng = np.random.default_rng(blocks * 100 + tile)
     n = 96
     tol = 8.0 * torch.finfo(torch.float32).eps
@@ -115,9 +144,103 @@ def test_sweep_stop_by_partials_equals_the_plain_test(blocks, tile):
         dmin_free = torch.where(free_col, d, INF).amin()
         thresh = dmin_free + tol * (1.0 + dmin_free.abs())
         want = bool((improve & (d <= thresh)).any())
-        got, got_min = augment.sweep_stop_by_partials(d, improve, free_col, blocks, tile)
+        got, got_min = augment.sweep_stop_by_keys(d, improve, free_col, blocks, tile)
         assert got == want, trial
         assert _same(got_min, dmin_free)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stop_keys_order_like_the_floats(dtype):
+    """The stop test's keys sort as the distances do, NaN first (key 0, one
+    class), and decode to the same bits."""
+    d = torch.tensor([NAN, -INF, -3.5, -1e-30, 0.0, 1e-30, 2.0, 2.0, 3.5, 1e30, INF], dtype=dtype)
+    k = augment.stop_keys(d)
+    assert k[0] == 0 and all(a < b for a, b in zip(k[1:6], k[2:7]))
+    assert k[6] == k[7] and k[7] < k[8] < k[9] < k[10] == augment._INF_KEY
+    assert augment.stop_keys(torch.tensor([-NAN, NAN], dtype=dtype)) == [0, 0]
+    for key, want in zip(k, d):
+        assert _same(augment._stop_value(key, dtype), want)
+
+
+def _round_state(C, n_free, seed):
+    """One round's inputs of the sweeps (as _augment_all_sweep_eager forms
+    them) from a matching with n_free free rows and columns."""
+    rng = np.random.default_rng(seed)
+    Ct = _t(C)
+    n = C.shape[0]
+    x = torch.from_numpy(rng.permutation(n)).to(torch.int64)
+    y = torch.empty(n, dtype=torch.int64)
+    y[x] = torch.arange(n)
+    free = torch.from_numpy(rng.permutation(n)[:n_free])
+    y[x[free]] = -1
+    x[free] = -1
+    v = torch.from_numpy(rng.normal(0, 0.05, n).astype(C.dtype))
+    free_row, free_col = x < 0, y < 0
+    slack = Ct - v[None, :]
+    x_safe = torch.where(x >= 0, x, 0)
+    u = torch.where(free_row, slack.amin(1), slack.gather(1, x_safe[:, None])[:, 0])
+    red = slack - u[:, None]
+    red = torch.where(red <= 0, 0.0, red)
+    d0, pred0 = torch.min(torch.where(free_row[:, None], red, INF), dim=0)
+    return red, free_row, x_safe, d0, pred0, free_col
+
+
+def _chain_state(n):
+    """A round whose shortest paths run through every row: row 0 free, row
+    i >= 1 holds column i - 1 and reaches column i at 0.5; every other entry
+    of red is 100 (ties among them), column n - 1 free and far (a sweep a
+    hop before the stop test can end)."""
+    red = torch.full((n, n), 100.0)
+    red[0, 0] = 0.0
+    idx = torch.arange(1, n)
+    red[idx, idx] = 0.5
+    x_safe = torch.cat([torch.zeros(1, dtype=torch.int64), idx - 1])
+    free_row = torch.zeros(n, dtype=torch.bool)
+    free_row[0] = True
+    free_col = torch.zeros(n, dtype=torch.bool)
+    free_col[n - 1] = True
+    d0, pred0 = torch.min(torch.where(free_row[:, None], red, INF), dim=0)
+    return red, free_row, x_safe, d0, pred0, free_col
+
+
+@pytest.mark.parametrize("converge", [False, True])
+@pytest.mark.parametrize("case", ["uniform", "tie", "sparse", "nan_free_row", "nan_matched_row",
+                                  "nan_entry", "inf_row", "one_free", "chain"])
+def test_sweeps_by_frontier_equal_the_plain_sweeps(case, converge):
+    """The resident layout's sweeps over the changed rows only (with the
+    NaN flags of red and e) give the plain loop's d, pred and sweep count
+    bit for bit; ``converge`` marks no column free, so the sweeps run until
+    nothing improves; "chain" needs a sweep a hop of a path through every
+    row."""
+    n = 48
+    fam = case if case in ("uniform", "tie", "sparse") else "uniform"
+    C = _cost(fam, n, 7 + len(case))
+    state = _round_state(C, 1 if case == "one_free" else 6, len(case))
+    red, free_row = state[0].clone(), state[1]
+    if case == "nan_free_row":
+        red[int(torch.nonzero(free_row)[0])] = NAN
+    elif case == "nan_matched_row":
+        red[int(torch.nonzero(~free_row)[0])] = NAN
+    elif case == "nan_entry":
+        red[int(torch.nonzero(~free_row)[3]), 5] = NAN
+    elif case == "inf_row":
+        red[int(torch.nonzero(~free_row)[1])] = INF
+    if case.startswith("nan"):  # d0 as the round forms it
+        d0, pred0 = torch.min(torch.where(free_row[:, None], red, INF), dim=0)
+        state = (red, free_row, state[2], d0, pred0, state[5])
+    else:
+        state = (red, *state[1:])
+    if case == "chain":
+        state = _chain_state(n)
+    if converge:
+        state = (*state[:5], torch.zeros_like(state[5]))
+    stats = tjv.SolveStats()
+    want_d, want_p = tjv._sweep_shortest_paths(*state[:5], n, state[5], stats)
+    if case == "chain":
+        assert stats.sweeps >= (n if converge else 8)
+    got_d, got_p, sweeps = augment.sweeps_by_frontier(*state, n)
+    assert _same(got_d, want_d) and torch.equal(got_p, want_p)
+    assert sweeps == stats.sweeps
 
 
 # ------------------------------------------------- S1: the flips
@@ -254,7 +377,7 @@ def test_coop_blocks_by_sm_count_and_occupancy():
 ])
 @pytest.mark.parametrize("staged", [True, False])
 def test_augment_geometry(n, itemsize, sms, occ, blocks, tile, staged):
-    g = augment.augment_geometry(n, itemsize, sms, occ, staged)
+    g = augment.augment_geometry(n, itemsize, sms, occ, "staged" if staged else "unstaged")
     assert (g.blocks, g.tile, g.threads) == (blocks, tile, 256)
     assert g.smem_bytes == ((2 * itemsize + 4) * n if staged else 0)
     assert -(-n // g.tile) >= g.blocks  # every block owns a tile
@@ -266,16 +389,91 @@ def test_augment_geometry_limits():
     layout takes every n, and only it."""
     assert augment.augment_staged(19_370, 4) and not augment.augment_staged(19_371, 4)
     assert augment.augment_staged(11_622, 8) and not augment.augment_staged(11_623, 8)
-    augment.augment_geometry(19_370, 4, 132, 1, True)
+    augment.augment_geometry(19_370, 4, 132, 1, "staged")
     with pytest.raises(ValueError):
-        augment.augment_geometry(19_371, 4, 132, 1, True)
+        augment.augment_geometry(19_371, 4, 132, 1, "staged")
     with pytest.raises(ValueError):
-        augment.augment_geometry(11_623, 8, 132, 1, True)
+        augment.augment_geometry(11_623, 8, 132, 1, "staged")
     for n, itemsize in ((19_371, 4), (11_623, 8), (12_288, 8), (65_536, 4)):
-        g = augment.augment_geometry(n, itemsize, 132, 2, False)
+        g = augment.augment_geometry(n, itemsize, 132, 2, "unstaged")
         assert (g.blocks, g.tile, g.smem_bytes) == (264, 32, 0)
     with pytest.raises(RuntimeError):
-        augment.augment_geometry(2048, 4, 132, 0, True)
+        augment.augment_geometry(2048, 4, 132, 0, "staged")
+
+
+@pytest.mark.parametrize("n,itemsize,sms,blocks,tile,fits", [
+    (2048, 4, 132, 128, 16, True),    # 128 tiles of 16: 128 KB a block
+    (2047, 4, 132, 128, 16, True),    # the last tile 15 wide
+    (2508, 4, 132, 132, 19, True),    # float32's limit on 132 SMs
+    (2509, 4, 132, 126, 20, False),
+    (1729, 8, 132, 124, 14, True),    # float64's limit
+    (1730, 8, 132, 124, 14, False),
+    (1024, 8, 132, 128, 8, True),
+    (2048, 8, 132, 128, 16, False),
+    (512, 4, 132, 64, 8, True),       # tiles of 8 at least
+    (130, 4, 132, 17, 8, True),       # the last tile 2 wide
+    (131, 8, 132, 17, 8, True),       # the last tile 3 wide
+    (33, 4, 132, 5, 8, True),
+    (7, 4, 132, 1, 8, True),          # fewer columns than SMs: one block
+    (2387, 4, 114, 114, 21, True),    # a card of 114 SMs
+    (2388, 4, 114, 114, 21, False),
+    (8192, 4, 132, 131, 63, False),   # wider than 32
+])
+def test_augment_resident_geometry(n, itemsize, sms, blocks, tile, fits):
+    """The resident layout: one tile a block, max(8, ceil(n / SMs)) columns
+    of any count, where the tile, d, e and x fit beside the static shared
+    memory; a resident launch that does not fit, or a grid the card cannot
+    hold, raises."""
+    assert augment.resident_tile(n, sms) == tile and -(-n // tile) == blocks
+    assert augment.augment_resident(n, itemsize, sms) == fits
+    smem = augment.augment_smem_bytes(n, itemsize, "resident", tile)
+    a16 = lambda b: -(-b // 16) * 16  # noqa: E731
+    assert smem == (128 + a16(itemsize * n * tile) + 2 * a16(itemsize * n) + a16(4 * n)
+                    + a16(4 * -(-n // 32)))
+    if tile <= 32:
+        assert (smem + augment.resident_static_smem(itemsize) <= augment.MAX_SMEM) == fits
+    if not fits:
+        with pytest.raises(ValueError):
+            augment.augment_geometry(n, itemsize, sms, 1, "resident")
+        return
+    g = augment.augment_geometry(n, itemsize, sms, 1, "resident")
+    assert (g.blocks, g.tile, g.threads, g.smem_bytes) == (blocks, tile, 256, smem)
+    assert g.blocks <= sms and (g.blocks - 1) * g.tile < n <= g.blocks * g.tile
+    with pytest.raises(RuntimeError):  # no block fits an SM
+        augment.augment_geometry(n, itemsize, sms, 0, "resident")
+
+
+@pytest.mark.parametrize("n,itemsize,sms,layout", [
+    (33, 4, 132, "resident"), (2048, 4, 132, "resident"), (2508, 4, 132, "resident"),
+    (2509, 4, 132, "staged"), (8192, 4, 132, "staged"), (19_370, 4, 132, "staged"),
+    (19_371, 4, 132, "unstaged"), (1729, 8, 132, "resident"), (1730, 8, 132, "staged"),
+    (2048, 8, 132, "staged"), (11_623, 8, 132, "unstaged"),
+])
+def test_augment_layout_by_size(n, itemsize, sms, layout):
+    assert augment.augment_layout(n, itemsize, sms) == layout
+
+
+@pytest.mark.parametrize("n,itemsize,tile,rows", [
+    (2048, 4, 16, 256),   # 8 boxes of 256 x 16
+    (2048, 8, 16, 256),
+    (512, 4, 8, 256),
+    (1024, 8, 8, 256),
+    (130, 8, 8, 130),     # one box; 130 x 64 B is a multiple of 128 B
+    (130, 4, 8, 0),       # a row of 520 B is no multiple of 16
+    (2047, 4, 16, 0),
+    (33, 4, 8, 0),
+    (2508, 4, 19, 0),     # 76 B wide
+    (2400, 4, 20, 240),   # 80 B wide: boxes of 240 rows (19,200 B)
+    (1012, 4, 8, 92),     # 32 B wide: 92 rows, not 253 (8,096 B, no multiple of 128)
+])
+def test_resident_tma_rows(n, itemsize, tile, rows):
+    """TMA loads a resident tile where C's rows and the tile's width are
+    16-byte multiples, in the largest box of at most 256 rows that divides
+    n and lands 128-byte aligned."""
+    got = augment.resident_tma_rows(n, itemsize, tile)
+    assert got == rows
+    if rows:
+        assert n % rows == 0 and rows <= 256 and (rows * tile * itemsize) % 128 == 0
 
 
 def test_arr_and_greedy_blocks():
@@ -526,11 +724,62 @@ def test_unstaged_layout_matches_plain_loop_on_card(cuda, fam, n, kind, dtype):
     Cd = _t(C).to(cuda)
     state = [t.to(cuda) for t in after_arr]
     k, p = (torch.zeros(3, dtype=torch.int64, device=cuda) for _ in range(2))
-    got = augment._augment(Cd, *state, k, staged=False)
+    got = augment._augment(Cd, *state, k, layout="unstaged")
     want = augment.augment_sweep_plain(Cd, *state, p)
     torch.cuda.synchronize()
     assert all(_same(a, b) for a, b in zip(got, want))
     assert torch.equal(k, p)
+
+
+_RESIDENT_CASES = [(n, np.float32, fam, kind) for n in (33, 512, 2048)
+                   for fam, kind in (("uniform", "plain"), ("tie", "plain"),
+                                     ("uniform", "nan_row"), ("uniform", "inf_row"))]
+_RESIDENT_CASES += [(n, np.float64, fam, kind) for n in (33, 512, 1024)
+                    for fam, kind in (("uniform", "plain"), ("tie", "plain"),
+                                      ("uniform", "nan_row"), ("uniform", "inf_row"))]
+_RESIDENT_CASES += [(n, dt, "uniform", "plain") for n in (130, 131) for dt in (np.float32, np.float64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype,fam,kind", _RESIDENT_CASES)
+def test_resident_layout_matches_plain_loop_on_card(cuda, n, dtype, fam, kind):
+    """S1's resident layout (each block's tile of C in shared memory for the
+    launch; TMA where aligned, and forced to coalesced loads), the staged
+    layout forced, and the plain loop: x, y, v and the counts bit for bit."""
+    C = _poisoned(_cost(fam, n, 90 + n), kind).astype(dtype)
+    _, _, after_arr = _states(C)
+    Cd = _t(C).to(cuda)
+    state = [t.to(cuda) for t in after_arr]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert augment.augment_layout(n, C.itemsize, sms) == "resident"
+    runs = {}
+    for name, kw in (("resident", {}), ("resident_loads", {"layout": "resident", "tma": False}),
+                     ("staged", {"layout": "staged"})):
+        counts = torch.zeros(3, dtype=torch.int64, device=cuda)
+        runs[name] = (*augment._augment(Cd, *state, counts, **kw), counts)
+    p = torch.zeros(3, dtype=torch.int64, device=cuda)
+    want = (*augment.augment_sweep_plain(Cd, *state, p), p)
+    torch.cuda.synchronize()
+    for name, got in runs.items():
+        assert all(_same(a, b) for a, b in zip(got, want)), name
+
+
+@pytest.mark.cuda
+def test_resident_static_smem_and_barrier_bench(cuda):
+    """The static shared memory the resident layout's limit assumes bounds
+    the kernel's own, and the barrier bench runs on the resident grid."""
+    from lapgnn_tpu_torch.ops.cuda._lib import KERNEL_LIBS
+
+    lib = KERNEL_LIBS["augment"].load()
+    for f64, itemsize in ((0, 4), (1, 8)):
+        for layout in range(3):
+            got = lib.lapgnn_augment_static_smem(f64, layout)
+            assert 0 < got <= augment.resident_static_smem(itemsize), (f64, layout, got)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = augment.augment_geometry(2048, 4, sms, 1, "resident")
+    for payload in (False, True):
+        augment.barrier_bench(cuda, g, 1000, payload)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -18,9 +18,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
      (one ``nvcc`` per ``csrc/*.cu``) and the native host solver (``g++``),
      built together from the checkout into ``build/``; each kernel's
-     registers, shared memory and spills (a spill fails the phase), S1's
-     static shared memory against what its resident layout's limit assumes
-     (more fails it), and how many of K1 / K2's thread block clusters the
+     registers, shared memory and spills (a spill fails the phase), S1's,
+     S2's and S3's static shared memory against what their layouts' limits
+     assume (more fails it), and how many of K1 / K2's thread block clusters the
      card holds at once (none fails it).
   2. Kernels against their plain PyTorch versions at n = 1000, 2048 and 8192
      on a (uniform, tie) batch of two: K1 column min, K2 min-trick and K4
@@ -61,8 +61,9 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      and the solver's loop counts.
   5. The port's device solver from the same matrix and seeds four ways: on
      the card through S1-S3 (S1 in its default layout: resident at n = 512
-     and 2048 in float32 and at 1024 in float64), again with S1 forced to
-     its staged layout, on the card through their plain versions (the
+     and 2048 in float32 and at 1024 in float64; S2 resident), again with S1
+     forced to its staged layout, at n = 2048 once more with S2 forced to
+     its global layout, on the card through their plain versions (the
      eager loops), and on the CPU (a spawned pool that starts first), at
      n = 512 and 2048 on the four families and on uniform with a NaN row
      and with an all-+inf row (float32, min-trick seeds), on uniform and tie
@@ -71,7 +72,8 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      class), the fallback flag and every loop count equal.  Meanwhile S1's
      unstaged layout (its row vectors read through L2) against its plain
      loop: forced at n = 2048, and in float64 at n = 12288, past what the
-     staged one holds.
+     staged one holds, where S2 runs in each of its layouts against its
+     plain loop too.
   6. Where one device solve's time goes (uniform): its stages by CUDA
      events, and the device's idle share and S1-S3's device times under
      torch.profiler.
@@ -211,7 +213,10 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      ``bound_every_row_ms``).  S1 at 2048 also with its staged layout
      forced and its resident tile loaded without TMA, beside its sync
      floor: the sweeps times one grid barrier of ``csrc/grid_barrier.cuh``,
-     timed alone on S1's grid (with and without the stop test's words).
+     timed alone on S1's grid (with and without the stop test's words).  S2
+     and S3 at both sizes with their grids (blocks, shared memory), S2's
+     layout and its other layout forced, and each one's sync floor: its
+     barriers on that state times one barrier timed alone on its own grid.
 
 Output: a JSON line per phase, then the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -429,6 +434,7 @@ def phase_build(torch, strict=True):
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
            "per_library_seconds": seconds,
            "augment_static_smem": _augment_static_smem(strict),
+           "auction_static_smem": _auction_static_smem(strict),
            "colmin_max_active_clusters": _colmin_cluster_occupancy(strict)})
 
 
@@ -449,6 +455,30 @@ def _augment_static_smem(strict):
                                      f"memory, above the {resident_static_smem(itemsize)} "
                                      "the resident limit assumes")
     return out
+
+
+def _auction_static_smem(strict):
+    """S2's static shared memory a block in each layout and type, and S3's,
+    which their layouts' limits (``arr.STATIC_SMEM``,
+    ``greedy_match.STATIC_SMEM``) must not undercount."""
+    import importlib
+
+    from lapgnn_tpu_torch.ops.cuda import arr as arr_mod
+    from lapgnn_tpu_torch.ops.cuda._lib import KERNEL_LIBS
+
+    gm_mod = importlib.import_module("lapgnn_tpu_torch.ops.cuda.greedy_match")
+    lib = KERNEL_LIBS["arr"].load()
+    out = {}
+    for f64 in (0, 1):
+        for code, layout in enumerate(arr_mod.LAYOUTS):
+            out[f"arr_{layout}_{'float64' if f64 else 'float32'}"] = (
+                lib.lapgnn_arr_static_smem(f64, code), arr_mod.STATIC_SMEM)
+    out["greedy_match"] = (KERNEL_LIBS["greedy_match"].load().lapgnn_greedy_match_static_smem(),
+                           gm_mod.STATIC_SMEM)
+    bad = {k: v for k, v in out.items() if not 0 < v[0] <= v[1]}
+    if bad and strict:
+        raise AssertionError(f"static shared memory above what the layouts assume: {bad}")
+    return {k: v[0] for k, v in out.items()}
 
 
 def _colmin_cluster_occupancy(strict):
@@ -1343,8 +1373,11 @@ VS_CPU_CASES = ("uniform", "noisy_linear", "sparse", "tie", "nan_row", "inf_row"
 VS_CPU_EXTRA = ((1024, "uniform_f64"), (1024, "tie_f64"), (2048, "uniform_f64"),
                 (2048, "predicted"))
 # S1's unstaged layout: forced where the staged one fits, and where it must
-# run (float64 above 11,622 columns)
+# run (float64 above 11,622 columns); S2 in both its layouts on the float64
+# matrix
 AUGMENT_UNSTAGED = ((2048, "float32", True), (12288, "float64", False))
+# device_vs_cpu's size at which each solve also runs S2 in its global layout
+S2_GLOBAL_N = 2048
 
 
 def _vs_cpu_case(n, case, seed):
@@ -1411,6 +1444,20 @@ def _s1_staged():
 
 
 @contextlib.contextmanager
+def _s2_global():
+    """The seeded solve's S2 in its global layout, where the resident one
+    would run."""
+    import lapgnn_tpu_torch.solver.seeded as seeded_mod
+    from lapgnn_tpu_torch.ops.cuda.arr import _arr
+
+    def global_layout(C, x, y, v, max_rounds, min_delta, counts):
+        return _arr(C, x, y, v, max_rounds, min_delta, counts, layout="global")
+
+    with _wrapped(seeded_mod, "arr_auction", lambda _: global_layout):
+        yield
+
+
+@contextlib.contextmanager
 def _plain_solver_loops():
     """The seeded solve's routers sent to S1-S3's plain versions: the eager
     loops, on the card."""
@@ -1459,7 +1506,7 @@ def _augment_unstaged(torch, seed):
         C = _batch(torch, n, seed + 11 * n, fams=("uniform",))[0].to(dt)
         if (augment_layout(n, C.element_size(), sm_count(C.device)) != "unstaged") != forced:
             raise AssertionError(f"augment_unstaged: n = {n} {dtype} is not the case meant")
-        _, _, after = _solver_inputs(torch, C)
+        _, start, after = _solver_inputs(torch, C)
         runs = {}
         for how in ("kernel", "plain"):
             counts = torch.zeros(3, dtype=torch.int64, device="cuda")
@@ -1487,8 +1534,44 @@ def _augment_unstaged(torch, seed):
                                "kernel_ms_host_clock": runs["kernel"]["ms"],
                                "plain_ms_host_clock": runs["plain"]["ms"],
                                "bound_ms": bound, "bound_by": by}
-        del C, after, runs
+        if not forced:
+            out[f"{dtype}_{n}"]["arr_layouts"] = _arr_layouts(torch, C, start)
+        del C, start, after, runs
         torch.cuda.empty_cache()
+    return out
+
+
+def _arr_layouts(torch, C, start):
+    """S2 on the state a seeded solve of C hands it, in each of its layouts
+    against its plain loop on the card: x, y, v bit for bit and the rounds;
+    each one's host-clock ms."""
+    from lapgnn_tpu_torch.ops.cuda import arr as arr_mod
+
+    n = C.shape[0]
+    rounds = max(64, n // 32)
+    runs = {}
+    for how in ("plain", *arr_mod.LAYOUTS):
+        counts = torch.zeros(1, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "plain":
+            got = arr_mod.arr_auction_plain(C, *start, rounds, 0.0, counts)
+        else:
+            got = arr_mod._arr(C, *start, rounds, 0.0, counts, layout=how)
+        torch.cuda.synchronize()
+        runs[how] = {"x": got[0], "y": got[1], "v": got[2], "used_fallback": False,
+                     "counts": {"arr_rounds": int(counts[0])},
+                     "ms": (time.perf_counter() - t0) * 1e3}
+    out = {"default_layout": arr_mod.arr_layout(n, C.element_size(),
+                                                 torch.cuda.get_device_properties(0)
+                                                 .multi_processor_count),
+           "rounds": runs["plain"]["counts"]["arr_rounds"],
+           "plain_ms_host_clock": runs["plain"]["ms"]}
+    for layout in arr_mod.LAYOUTS:
+        differ = _same_solve(torch, runs[layout], runs["plain"])
+        if differ:
+            raise AssertionError(f"arr {layout} layout n = {n} {C.dtype}: {differ}")
+        out[f"{layout}_ms_host_clock"] = runs[layout]["ms"]
     return out
 
 
@@ -1537,13 +1620,17 @@ def phase_device_vs_cpu(torch, pipe, seed):
             arrays = given.get((n, case)) or _vs_cpu_case(n, case, seed)
             C, u, v = (torch.from_numpy(a).cuda() for a in arrays)
             runs = {}
-            for how in ("kernels", "kernels_s1_staged", "plain"):
+            ways = ("kernels", "kernels_s1_staged", "plain") + (
+                ("kernels_s2_global",) if n == S2_GLOBAL_N else ())
+            for how in ways:
                 st = SolveStats()
                 with contextlib.ExitStack() as stack:
                     if how == "plain":
                         stack.enter_context(_plain_solver_loops())
                     elif how == "kernels_s1_staged":
                         stack.enter_context(_s1_staged())
+                    elif how == "kernels_s2_global":
+                        stack.enter_context(_s2_global())
                     with torch.inference_mode():
                         res = lapjv_seeded_single(C, u, v, gate="both", stats=st)
                     torch.cuda.synchronize()
@@ -1561,6 +1648,9 @@ def phase_device_vs_cpu(torch, pipe, seed):
                                                                              runs["plain"]),
                                      "s1_staged_vs_plain_differ": _same_solve(
                                          torch, runs["kernels_s1_staged"], runs["plain"]),
+                                     "s2_global_vs_plain_differ": _same_solve(
+                                         torch, runs["kernels_s2_global"], runs["plain"])
+                                     if "kernels_s2_global" in runs else [],
                                      "s1_layout": _s1_layout(n, C),
                                      "counts": runs["kernels"]["counts"],
                                      "used_fallback": runs["kernels"]["used_fallback"]}
@@ -1573,7 +1663,7 @@ def phase_device_vs_cpu(torch, pipe, seed):
         pool.shutdown(cancel_futures=True)
     bad = {k: r for k, r in report.items()
            if r["kernels_vs_plain_differ"] or r["s1_staged_vs_plain_differ"]
-           or r["card_vs_cpu_differ"]}
+           or r["s2_global_vs_plain_differ"] or r["card_vs_cpu_differ"]}
     if bad:
         raise AssertionError(f"device_vs_cpu: the solves disagree: {bad}")
     for k in SOLVER_KERNELS:
@@ -3958,6 +4048,41 @@ def _solver_times(torch, C, flush, reps):
         "augment_sweep", s1["loop_count"] * n * n, n, 4)
     s1["changed_rows"] = s1_rows["changed_rows"]
     s1.update(_s1_layouts(torch, C, after, flush, reps))
+    loops = {name: out[name]["loop_count"] for name in ("arr_auction", "greedy_match")}
+    for name, extra in _auction_variants(torch, C, start, rounds, loops, flush, reps).items():
+        out[name].update(extra)
+    return out
+
+
+def _auction_variants(torch, C, start, rounds, loops, flush, reps):
+    """S2's and S3's grids on C: S2's layout and its other layout forced
+    (CUDA events, L2 flushed), and each one's sync floor: its rounds on
+    this state (``loops``; one barrier a round, S2 in float32) times one
+    grid barrier timed alone on its own grid (``augment.barrier_bench``,
+    median of 5 launches of 20,000 barriers)."""
+    import importlib
+
+    from lapgnn_tpu_torch.ops.cuda._lib import sm_count
+    from lapgnn_tpu_torch.ops.cuda.arr import _arr, arr_geometry, arr_layout
+    from lapgnn_tpu_torch.ops.cuda.augment import barrier_bench
+
+    gm_mod = importlib.import_module("lapgnn_tpu_torch.ops.cuda.greedy_match")
+    n, sms = C.shape[0], sm_count(C.device)
+    scratch = torch.zeros(1, dtype=torch.int64, device=C.device)
+    iters = 20_000
+    layout = arr_layout(n, C.element_size(), sms)
+    other = "global" if layout == "resident" else "resident"
+    out = {}
+    for name, g in (("arr_auction", arr_geometry(n, C.element_size(), sms, 1, layout)),
+                    ("greedy_match", gm_mod.greedy_match_geometry(n, sms, 1))):
+        per_barrier = _time_ms(torch, lambda: barrier_bench(C.device, g, iters), 5, flush) / iters
+        out[name] = {"blocks": g.blocks, "smem_bytes": g.smem_bytes,
+                     "barrier_us": per_barrier * 1e3, "barriers": loops[name],
+                     "sync_floor_ms": loops[name] * per_barrier}
+    out["arr_auction"].update({
+        "layout": layout,
+        f"{other}_ms": _time_ms(
+            torch, lambda: _arr(C, *start, rounds, 0.0, scratch, layout=other), reps, flush)})
     return out
 
 

@@ -20,19 +20,20 @@ constexpr uint32_t kSign = 0x80000000u;
 constexpr uint32_t kTopKey = 0xFFFFFFFFu;
 
 // How a row scan reads v.  K4's v is read-only for the whole launch; the
-// persistent ARR kernel lowers v between its rounds, so it reads v from L2
-// (an SM's L1 is not coherent with the other SMs' writes).
+// persistent ARR kernel keeps a block-local copy of v (in the block's shared
+// memory, or in a region of device memory that only the block writes), which
+// the block itself lowers between its rounds: plain loads.
 struct ReadOnlyV {
   template <typename U>
   __device__ __forceinline__ static U scan(const U* p) { return __ldg(p); }
   template <typename U>
   __device__ __forceinline__ static U at(const U* p) { return *p; }
 };
-struct CoherentV {
+struct LocalV {
   template <typename U>
-  __device__ __forceinline__ static U scan(const U* p) { return __ldcg(p); }
+  __device__ __forceinline__ static U scan(const U* p) { return *p; }
   template <typename U>
-  __device__ __forceinline__ static U at(const U* p) { return __ldcg(p); }
+  __device__ __forceinline__ static U at(const U* p) { return *p; }
 };
 
 // Order key of a reduced cost x = c - w, as torch.argmin orders floats: NaN

@@ -98,25 +98,31 @@ def _bind_augment(lib: ctypes.CDLL) -> None:
 
 def _bind_arr(lib: ctypes.CDLL) -> None:
     lib.lapgnn_arr_occupancy.restype = _I
-    lib.lapgnn_arr_occupancy.argtypes = [_I, _I]
+    lib.lapgnn_arr_occupancy.argtypes = [_I, _I, _I, _I]
+    lib.lapgnn_arr_static_smem.restype = _I
+    lib.lapgnn_arr_static_smem.argtypes = [_I, _I]
     lib.lapgnn_arr_work_bytes.restype = _LL
-    lib.lapgnn_arr_work_bytes.argtypes = [_I, _I, _I]
+    lib.lapgnn_arr_work_bytes.argtypes = [_I, _I]
     lib.lapgnn_arr.restype = _I
-    lib.lapgnn_arr.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP]
+    lib.lapgnn_arr.argtypes = [*[_VP] * 10, _I, _I, _F, _I, _I, _I, _I, _VP]
     lib.lapgnn_arr_f64.restype = _I
-    lib.lapgnn_arr_f64.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _D, _I, _VP]
+    lib.lapgnn_arr_f64.argtypes = [*[_VP] * 10, _I, _I, _D, _I, _I, _I, _VP]
 
 
 def _bind_greedy_match(lib: ctypes.CDLL) -> None:
     lib.lapgnn_greedy_match_occupancy.restype = _I
     lib.lapgnn_greedy_match_occupancy.argtypes = [_I]
+    lib.lapgnn_greedy_match_static_smem.restype = _I
+    lib.lapgnn_greedy_match_static_smem.argtypes = []
     lib.lapgnn_greedy_match_work_bytes.restype = _LL
     lib.lapgnn_greedy_match_work_bytes.argtypes = [_I]
     lib.lapgnn_greedy_match.restype = _I
-    lib.lapgnn_greedy_match.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP]
+    lib.lapgnn_greedy_match.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP]
 
 
 _TWOMIN_H = CSRC / "twomin.cuh"
+_BARRIER_H = CSRC / "grid_barrier.cuh"
+_ROUNDS_H = CSRC / "free_rows.cuh"
 _SOLVER_FLAGS = partial(_nvcc_command, "--fmad=false")
 
 KERNEL_LIBS: Dict[str, SharedLibrary] = {
@@ -130,11 +136,15 @@ KERNEL_LIBS: Dict[str, SharedLibrary] = {
     "greedy": SharedLibrary(CSRC / "greedy.cu", "kernels", _nvcc_command, _bind_greedy),
     "augment": SharedLibrary(
         CSRC / "augment.cu", "kernels", _SOLVER_FLAGS, _bind_augment,
-        deps=[_TWOMIN_H, CSRC / "grid_barrier.cuh"],
+        deps=[_TWOMIN_H, _BARRIER_H],
     ),
-    "arr": SharedLibrary(CSRC / "arr.cu", "kernels", _SOLVER_FLAGS, _bind_arr, deps=[_TWOMIN_H]),
+    "arr": SharedLibrary(
+        CSRC / "arr.cu", "kernels", _SOLVER_FLAGS, _bind_arr,
+        deps=[_TWOMIN_H, _BARRIER_H, _ROUNDS_H],
+    ),
     "greedy_match": SharedLibrary(
-        CSRC / "greedy_match.cu", "kernels", _SOLVER_FLAGS, _bind_greedy_match
+        CSRC / "greedy_match.cu", "kernels", _SOLVER_FLAGS, _bind_greedy_match,
+        deps=[_BARRIER_H, _ROUNDS_H],
     ),
 }
 

@@ -12,7 +12,10 @@ itself msgpack, ``[shape, dtype name, raw C-order bytes]``.  The port
 carries its own small writer (``msgpack_serialize``, byte-equal to
 ``flax.serialization.msgpack_serialize`` of the same tree) and reader
 (``msgpack_restore``), so that it needs neither the ``msgpack`` package nor
-flax.  The optimizer state is the port's own file, ``opt_state.pt``
+flax.  An array above ``_MAX_CHUNK_BYTES`` (flax's ``MAX_CHUNK_SIZE``, 2**30
+bytes) is written, as flax writes it, as a map ``{"__msgpack_chunked_array__":
+True, "shape": {"0": ..}, "chunks": {"0": .., "1": ..}}`` of flat chunks of
+``MAX_CHUNK_SIZE // itemsize`` elements, and joined back on reading.  The optimizer state is the port's own file, ``opt_state.pt``
 (``torch.save``), where the JAX package writes ``opt_state.msgpack``: the
 two optimizers' states have different shapes.
 """
@@ -41,6 +44,14 @@ _EXT_COMPLEX = 2
 _EXT_NPSCALAR = 3
 # flax.serialization.MAX_CHUNK_SIZE: flax splits larger arrays into chunks
 _MAX_CHUNK_BYTES = 2**30
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+class _InOrder(dict):
+    """A map written in its insertion order, as the ``msgpack`` package
+    writes a dict; every other map is written with its keys sorted, the
+    order JAX's tree utilities leave them in.  flax builds its chunked
+    arrays' maps after that sort, so they keep their own order."""
 
 
 class _Writer:
@@ -124,7 +135,7 @@ class _Writer:
                 self._size(len(x), None, 0xDE, 0xDF)
             if not all(isinstance(k, str) for k in x):
                 raise TypeError(f"msgpack_serialize: map keys must be str, got {list(x)}")
-            for k in sorted(x):
+            for k in (x if isinstance(x, _InOrder) else sorted(x)):
                 self._str(k)
                 self.write(x[k])
         elif isinstance(x, np.ndarray):
@@ -138,19 +149,43 @@ class _Writer:
 def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes cannot be serialised")
-    if arr.nbytes > _MAX_CHUNK_BYTES:
-        raise NotImplementedError("chunked (> 1 GiB) arrays are not supported")
     w = _Writer()
     w.write([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
     return bytes(w.out)
 
 
+def _chunk(arr: np.ndarray) -> _InOrder:
+    """flax.serialization._chunk: the flattened array in chunks of
+    ``_MAX_CHUNK_BYTES / itemsize`` elements."""
+    size = max(1, int(_MAX_CHUNK_BYTES / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i : i + size] for i in range(0, flat.size, size)]
+    return _InOrder({_CHUNKED: True,
+                     "shape": _InOrder((str(k), d) for k, d in enumerate(arr.shape)),
+                     "chunks": _InOrder((str(k), c) for k, c in enumerate(chunks))})
+
+
+def _oversized(x: Any) -> bool:
+    return isinstance(x, np.ndarray) and x.size * x.dtype.itemsize > _MAX_CHUNK_BYTES
+
+
+def _chunk_leaves(tree: Any) -> Any:
+    """flax.serialization._chunk_array_leaves_in_place on a copy: the
+    oversized arrays of the maps (and the tree itself), not those in
+    lists."""
+    if isinstance(tree, dict):
+        return {k: _chunk(v) if _oversized(v) else _chunk_leaves(v) if isinstance(v, dict) else v
+                for k, v in tree.items()}
+    return _chunk(tree) if _oversized(tree) else tree
+
+
 def msgpack_serialize(tree: Any) -> bytes:
     """Encode a tree of dicts (str keys) and numpy arrays as
     ``flax.serialization.msgpack_serialize`` encodes it, byte for byte: each
-    map's keys sorted, as JAX's tree utilities leave them."""
+    map's keys sorted, as JAX's tree utilities leave them, and each array
+    above ``_MAX_CHUNK_BYTES`` in flax's chunked form."""
     w = _Writer()
-    w.write(tree)
+    w.write(_chunk_leaves(tree))
     return bytes(w.out)
 
 
@@ -260,17 +295,27 @@ def msgpack_restore(data: bytes) -> Any:
     tree = reader.read()
     if reader.pos != len(reader.data):
         raise ValueError("trailing bytes after the msgpack object")
-    if _has_chunked(tree):
-        raise NotImplementedError("chunked (> 2 GiB) arrays are not supported")
+    return _unchunk_leaves(tree)
+
+
+def _unchunk(data: dict) -> np.ndarray:
+    """flax.serialization._unchunk: the chunks joined in order, reshaped."""
+    shape = tuple(data["shape"][str(k)] for k in range(len(data["shape"])))
+    chunks = [data["chunks"][str(k)] for k in range(len(data["chunks"]))]
+    return np.concatenate(chunks).reshape(shape)
+
+
+def _unchunk_leaves(tree: Any) -> Any:
+    """flax.serialization._unchunk_array_leaves_in_place: every chunked
+    array among the maps (and the tree itself) joined back."""
+    if not isinstance(tree, dict):
+        return tree
+    if _CHUNKED in tree:
+        return _unchunk(tree)
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            tree[k] = _unchunk_leaves(v)
     return tree
-
-
-def _has_chunked(tree: Any) -> bool:
-    if isinstance(tree, dict):
-        return "__msgpack_chunked_array__" in tree or any(
-            _has_chunked(v) for v in tree.values()
-        )
-    return False
 
 
 def save_checkpoint(path, params, meta: Dict[str, Any], opt_state=None) -> None:

@@ -332,6 +332,76 @@ def test_gap_keys_order_like_the_gaps():
     assert k[3] == k[4] and (k > 0).all()
 
 
+def _bids_case(kind, seed, n=64):
+    """Bids (cols, gaps, rows) over n columns: random; all tied at one gap;
+    -0.0 against +0.0; one bidder."""
+    rng = np.random.default_rng(seed)
+    rows = torch.arange(n, dtype=torch.int64)
+    cols = torch.from_numpy(rng.integers(0, n // 4, n)).to(torch.int64)
+    cols[rng.random(n) < 0.3] = n  # no bid
+    gaps = torch.from_numpy(rng.integers(0, 5, n).astype(np.float32) * 0.5)
+    gaps[rng.random(n) < 0.1] = INF
+    if kind == "ties":
+        gaps[:] = 1.5
+    elif kind == "zeros":
+        gaps[:] = torch.where(torch.arange(n) % 2 == 0, -0.0, 0.0)
+    elif kind == "one":
+        cols[:] = n
+        cols[37] = 5
+    return cols, gaps, rows
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros", "one"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_winner_words_equal_best_bid(kind, seed):
+    """The float32 kernel's one atomicMax of (gap key, inverted row) words
+    gives RowPartition.best_bid's winner (largest gap, lowest row on a tie)
+    and gap, and best_bid_by_keys' (the float64 kernel's two steps)."""
+    n = 64
+    cols, gaps, rows = _bids_case(kind, seed, n)
+    want_best, want_row = RowPartition().best_bid(cols, gaps, rows, n)
+    got_best, got_row = arr.winner_words(cols, gaps, rows, n)
+    keys_best, keys_row = arr.best_bid_by_keys(cols, gaps, rows, n)
+    assert torch.equal(got_row, want_row) and torch.equal(keys_row, want_row)
+    assert torch.equal(got_best == want_best, torch.ones(n + 1, dtype=torch.bool))
+    assert torch.equal(got_best == keys_best, torch.ones(n + 1, dtype=torch.bool))
+
+
+def test_gap_keys32_order_like_the_gaps():
+    g = torch.tensor([-INF, -3.5, -1e-30, -0.0, 0.0, 1e-30, 2.0, 3.5, INF])
+    k = arr._gap_keys32(g)
+    assert (np.diff(k.astype(np.int64)) >= 0).all() and (k < 2**32).all()
+    assert k[3] == k[4] and (k > 0).all()
+    back = arr._key_gaps32(k)
+    assert np.array_equal(back[[0, 1, 2, 5, 6, 7, 8]], g.numpy()[[0, 1, 2, 5, 6, 7, 8]])
+    assert back[3] == 0.0 and not np.signbit(back[3])
+
+
+_ROUND_CASES = [(fam, dt, "plain", r) for fam in ("uniform", "noisy_linear", "sparse", "tie")
+                for dt in (np.float32, np.float64) for r in (3, 64)]
+_ROUND_CASES += [("uniform", dt, kind, r) for kind in ("nan_row", "inf_row")
+                 for dt in (np.float32, np.float64) for r in (3, 64)]
+
+
+@pytest.mark.parametrize("fam,dtype,kind,rounds", _ROUND_CASES)
+def test_arr_rounds_by_ranks_equal_the_eager_loop(fam, dtype, kind, rounds):
+    """S2's round structure (block-local state, the bids spread over the
+    blocks, three slot buffers with round r's cleared in round r + 2, each
+    bid stored by its rank and the winning ones applied after the barrier,
+    no bid as the stop test) against the eager loop: x, y, v bit for bit
+    and the rounds, with max_rounds reached (3) and not (64)."""
+    n = 96 if fam == "tie" else 160
+    C = _poisoned(_cost(fam, n, 40 + n), kind).astype(dtype)
+    Ct = _t(C)
+    tight, m, _ = _states(C, max_rounds=0)
+    for blocks in (1, 5):
+        x, y, v, got_rounds = arr.arr_rounds_by_ranks(Ct, *m, rounds, 0.0, blocks)
+        counts = torch.zeros(1, dtype=torch.int64)
+        want = arr.arr_auction_plain(Ct, *m, rounds, 0.0, counts)
+        assert all(_same(a, b) for a, b in zip((x, y, v), want)), blocks
+        assert got_rounds == int(counts[0])
+
+
 # ------------------------------------------------- S3: the proposals
 
 
@@ -347,6 +417,34 @@ def test_proposals_by_keys_equal_the_plain_argmin(rnd):
     want = torch.where(avail, score, tseeded._INT32_MAX).argmin(1)
     want = torch.where(avail.any(1), want, -1)
     assert torch.equal(gm.proposals_by_keys(avail, rnd), want)
+
+
+def test_nonzero4_folds_bytes_into_bits():
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        b = rng.integers(0, 256, 4) * (rng.random(4) < 0.5)
+        u = int.from_bytes(bytes(b.astype(np.uint8)), "little")
+        want = sum(1 << k for k in range(4) if b[k])
+        assert gm._nonzero4(u) == want
+
+
+@pytest.mark.parametrize("fam,kind", [("uniform", "plain"), ("noisy_linear", "plain"),
+                                      ("sparse", "plain"), ("tie", "plain"),
+                                      ("uniform", "nan_row"), ("sparse", "inf_row")])
+@pytest.mark.parametrize("addr", [0, 7])
+def test_greedy_rounds_by_words_equal_the_plain_loop(fam, kind, addr):
+    """S3's proposals over 16-byte words (an unaligned head and a tail a byte
+    at a time) against the free columns' bits, each stored by its rank, and
+    its deferred apply of the winning ones, against the eager loop: x, y and
+    the rounds."""
+    n = 90 if fam == "tie" else 131
+    C = _poisoned(_cost(fam, n, 50 + n), kind)
+    tight, _, _ = _states(C, max_rounds=0)
+    for blocks in (1, 4):
+        x, y, rounds = gm.greedy_rounds_by_words(tight, blocks, addr)
+        counts = torch.zeros(1, dtype=torch.int64)
+        want = gm.greedy_match_plain(tight, counts)
+        assert torch.equal(x, want[0]) and torch.equal(y, want[1]) and rounds == int(counts[0])
 
 
 # ------------------------------------------------- launch geometry
@@ -477,12 +575,74 @@ def test_resident_tma_rows(n, itemsize, tile, rows):
 
 
 def test_arr_and_greedy_blocks():
-    assert arr.arr_blocks(2048, 132, 8) == 256
-    assert arr.arr_blocks(100, 132, 8) == 13
-    assert gm.greedy_match_blocks(2048, 132, 3) == 256
-    assert gm.greedy_match_blocks(8192, 132, 1) == 132
+    """S2's and S3's grids: one block a SM by default, never more blocks
+    than rows; S3's bits fit a block up to n = 828,288 on 132 SMs."""
+    assert arr.arr_blocks(2048, 132, 8) == 132
+    assert arr.arr_blocks(2048, 114, 1) == 114
+    assert arr.arr_blocks(100, 132, 8) == 100
+    assert gm.greedy_match_geometry(2048, 132, 3).blocks == 132
+    assert gm.greedy_match_geometry(8192, 114, 4).blocks == 114
+    assert gm.greedy_match_geometry(40, 132, 2).blocks == 40
+    gm.greedy_match_geometry(828_288, 132, 1)
     with pytest.raises(ValueError):
-        gm.greedy_match_blocks(300_000, 132, 1)
+        gm.greedy_match_geometry(828_289, 132, 1)
+
+
+@pytest.mark.parametrize("n,blocks,smem", [
+    (2048, 132, 4 * (64 + 68 + 16)),
+    (8192, 132, 4 * (256 + 260 + 64)),
+    (33, 33, 4 * (4 + 4 + 4)),
+    (300_000, 132, 4 * (9376 + 9376 + 2276)),
+])
+def test_greedy_match_geometry(n, blocks, smem):
+    g = gm.greedy_match_geometry(n, 132, 1)
+    assert (g.blocks, g.threads, g.smem_bytes) == (blocks, 256, smem)
+    assert g.smem_bytes == gm.greedy_match_smem_bytes(n, -(-n // blocks))
+    with pytest.raises(RuntimeError):  # no block fits an SM
+        gm.greedy_match_geometry(n, 132, 0)
+
+
+@pytest.mark.parametrize("n,itemsize,sms,layout,blocks,smem,default", [
+    (2048, 4, 132, "resident", 132, 256 + 64 + 8192 + 8192, True),
+    (2048, 4, 64, "resident", 64, 256 + 128 + 8192 + 8192, True),
+    (2048, 4, 132, "global", 132, 256 + 64, False),
+    (2048, 8, 132, "resident", 132, 256 + 64 + 128 + 64 + 16384 + 8192, True),
+    (8192, 4, 132, "resident", 132, 1024 + 256 + 32768 + 32768, True),
+    (8192, 4, 114, "resident", 114, 1024 + 288 + 32768 + 32768, True),
+    (12_288, 8, 132, "resident", 132, 1536 + 384 + 752 + 384 + 98304 + 49152, True),
+    (12_288, 8, 132, "global", 132, 1536 + 384 + 752 + 384, False),
+    (33, 4, 132, "resident", 33, 16 + 16 + 144 + 144, True),
+    (28_436, 4, 132, "resident", 132, 3568 + 864 + 113744 + 113744, True),
+    (28_437, 4, 132, "global", 132, 3568 + 864, True),
+    (18_938, 8, 132, "resident", 132, 2368 + 576 + 1152 + 576 + 151504 + 75760, True),
+    (100_000, 4, 132, "global", 132, 12512 + 3040, True),
+])
+def test_arr_geometry(n, itemsize, sms, layout, blocks, smem, default):
+    """S2's launch: a block's shared memory (a bit a row, its rows of a
+    round, float64 their bids, and in the resident layout v and y), the
+    grid, and the default layout: resident where it fits beside the static
+    shared memory on one block a SM; a resident launch that does not fit
+    raises."""
+    g = arr.arr_geometry(n, itemsize, sms, 2, layout)
+    assert (g.blocks, g.threads, g.smem_bytes) == (blocks, 256, smem)
+    assert g.smem_bytes == arr.arr_smem_bytes(n, itemsize, -(-n // blocks), layout)
+    assert (arr.arr_layout(n, itemsize, sms) == layout) == default
+    if layout == "global" and default:
+        with pytest.raises(ValueError):
+            arr.arr_geometry(n, itemsize, sms, 1, "resident")
+    with pytest.raises(RuntimeError):  # no block fits an SM
+        arr.arr_geometry(n, itemsize, sms, 0, layout)
+
+
+def test_arr_resident_limits():
+    """The resident layout's limits: 28,436 columns in float32 and 18,938 in
+    float64 on 132 SMs, 28,420 / 18,908 on 114."""
+    for n, itemsize, sms in ((28_436, 4, 132), (18_938, 8, 132), (28_420, 4, 114),
+                             (18_908, 8, 114)):
+        assert arr.arr_layout(n, itemsize, sms) == "resident"
+        assert arr.arr_layout(n + 1, itemsize, sms) == "global"
+    assert arr.arr_state_stride(2048, 4) == 16384
+    assert arr.arr_state_stride(33, 8) == 512
 
 
 # ------------------------------------------------- routing and counts
@@ -669,9 +829,10 @@ def _poisoned(C, kind):
     return C
 
 
-def _states(C, u=None, v=None):
+def _states(C, u=None, v=None, max_rounds=None):
     """The inputs the seeded solve hands S3, S2 and S1, on C's device, from
-    the CPU's plain loops."""
+    the CPU's plain loops (ARR's rounds capped at ``max_rounds``, default
+    the solver's)."""
     Ct = _t(C)
     n = C.shape[0]
     u = _t(C.min(1) if u is None else u)
@@ -680,7 +841,8 @@ def _states(C, u=None, v=None):
     tight = (Ct - u[:, None] - v[None, :]).abs() <= 1e-5
     x, y = tseeded.greedy_tight_matching(tight)
     m = tjv.Matching(x, y, v)
-    after_arr = tseeded.jacobi_arr(Ct, m, max_rounds=max(64, n // 32))
+    rounds = max(64, n // 32) if max_rounds is None else max_rounds
+    after_arr = tseeded.jacobi_arr(Ct, m, max_rounds=rounds)
     return tight, m, after_arr
 
 
@@ -812,3 +974,77 @@ def test_kernels_raise_on_an_unsupported_dtype(cuda):
         arr.arr_auction(C, x, x, C[0], 4, 0.0, counts[1:2])
     with pytest.raises(TypeError):
         gm.greedy_match(C, counts[0:1])
+
+
+def _card_start(C, device):
+    """S2's start on the card from C (numpy): the min-trick seed's tight
+    matrix and its greedy matching by the plain loop there."""
+    Ct = _t(C).to(device)
+    u = Ct.amin(1)
+    v = (Ct - u[:, None]).amin(0)
+    u = (Ct - v[None, :]).amin(1)
+    tight = (Ct - u[:, None] - v[None, :]).abs() <= 1e-5
+    x, y = gm.greedy_match_plain(tight, torch.zeros(1, dtype=torch.int64, device=device))
+    return Ct, tight, (x, y, v)
+
+
+_S2_CARD_CASES = [(n, dt, fam, kind) for n in (512, 2048) for dt in (np.float32, np.float64)
+                  for fam, kind in (("uniform", "plain"), ("tie", "plain"),
+                                    ("uniform", "nan_row"), ("uniform", "inf_row"))]
+_S2_CARD_CASES += [(8192, np.float32, "uniform", "plain"), (8192, np.float32, "sparse", "plain"),
+                   (130, np.float32, "uniform", "plain"), (33, np.float64, "tie", "plain")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype,fam,kind", _S2_CARD_CASES)
+def test_arr_layouts_match_plain_loop_on_card(cuda, n, dtype, fam, kind):
+    """S2 in its resident and its global layout against its plain loop on
+    the card: x, y, v bit for bit (NaN one class) and the rounds."""
+    C = _poisoned(_cost(fam, n, 95 + n), kind).astype(dtype)
+    Ct, _, start = _card_start(C, cuda)
+    rounds = max(64, n // 32)
+    p = torch.zeros(1, dtype=torch.int64, device=cuda)
+    want = (*arr.arr_auction_plain(Ct, *start, rounds, 0.0, p), p)
+    for layout in arr.LAYOUTS:
+        k = torch.zeros(1, dtype=torch.int64, device=cuda)
+        got = (*arr._arr(Ct, *start, rounds, 0.0, k, layout=layout), k)
+        torch.cuda.synchronize()
+        assert all(_same(a, b) for a, b in zip(got, want)), layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,fam,kind", [(n, fam, "plain") for n in (512, 2048, 8192)
+                                        for fam in ("uniform", "sparse", "tie")]
+                         + [(2048, "uniform", "nan_row"), (2048, "uniform", "inf_row"),
+                            (131, "uniform", "plain"), (33, "tie", "plain"),
+                            (1000, "noisy_linear", "plain")])
+def test_greedy_match_matches_plain_loop_on_card(cuda, n, fam, kind):
+    """S3 against its plain loop on the card: x, y and the rounds; n % 16 != 0
+    takes the rows' unaligned heads and tails."""
+    C = _poisoned(_cost(fam, n, 97 + n), kind)
+    _, tight, _ = _card_start(C, cuda)
+    p = torch.zeros(1, dtype=torch.int64, device=cuda)
+    want = (*gm.greedy_match_plain(tight, p), p)
+    k = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = (*gm.greedy_match_kernel(tight, k), k)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_arr_and_greedy_static_smem_and_sync_floor(cuda):
+    """The static shared memory S2's and S3's limits assume bounds the
+    kernels' own, and the barrier bench runs on their grids."""
+    from lapgnn_tpu_torch.ops.cuda._lib import KERNEL_LIBS
+
+    lib = KERNEL_LIBS["arr"].load()
+    for f64 in (0, 1):
+        for layout in range(len(arr.LAYOUTS)):
+            got = lib.lapgnn_arr_static_smem(f64, layout)
+            assert 0 < got <= arr.STATIC_SMEM, (f64, layout, got)
+    got = KERNEL_LIBS["greedy_match"].load().lapgnn_greedy_match_static_smem()
+    assert 0 < got <= gm.STATIC_SMEM
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for g in (arr.arr_geometry(2048, 4, sms, 1, "resident"), gm.greedy_match_geometry(2048, sms, 1)):
+        augment.barrier_bench(cuda, g, 1000)
+    torch.cuda.synchronize()

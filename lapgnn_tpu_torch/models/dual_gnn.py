@@ -45,6 +45,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..ops.features import EDGE_FEATURE_DIM, NODE_FEATURE_DIM
 from .one_gnn import dropout
 
@@ -272,8 +273,9 @@ class DualGNN(nn.Module):
         for layer in self.layer:
             seed = None
             if generator is not None and self.dropout > 0.0:
-                seed = int(torch.randint(0, 2**62, (1,), generator=generator,
-                                         device=generator.device).item())
+                draw = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
+                # a generator on the card makes the read a host sync
+                seed = int(tracing.item(draw) if draw.device.type != "cpu" else draw.item())
             args = (edge_feat, row_embed, col_embed, mask, seed, part)
             if self.remat and torch.is_grad_enabled():
                 row_embed, col_embed = checkpoint(layer, *args, use_reentrant=False)

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .cuda.features import row_features_max_m, row_features_stats
 
 __all__ = [
@@ -48,7 +49,7 @@ def positional_encodings(n: int, device=None, dtype=torch.float32) -> torch.Tens
     """sin/cos of 2*pi*pos*f/max(1, n-1) for f in (1, 2, 4, 8) -> (n, 8)."""
     pos = torch.arange(n, dtype=torch.float32, device=device).reshape(n, 1)
     scale = float(max(1, n - 1))
-    freqs = torch.tensor(POS_FREQS, dtype=torch.float32, device=device).reshape(1, -1)
+    freqs = tracing.to_device(POS_FREQS, device, torch.float32).reshape(1, -1)
     angle = 2.0 * math.pi * pos * freqs / scale
     enc = torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1)
     return enc.reshape(n, 2 * len(POS_FREQS)).to(dtype)
@@ -224,7 +225,7 @@ def _exact_div(x: torch.Tensor, d: int) -> torch.Tensor:
     """x / d, rounded once.  With a Python number for d, PyTorch multiplies
     by its reciprocal on CUDA (one ulp apart from the division for most d);
     a tensor divisor keeps the division, as on the CPU and in JAX."""
-    return x / torch.tensor(float(d), dtype=x.dtype, device=x.device)
+    return x / tracing.to_device(float(d), x.device, x.dtype)
 
 
 def _axis_stats(C: torch.Tensor, dim: int):

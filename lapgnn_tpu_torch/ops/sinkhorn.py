@@ -14,6 +14,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from .dual import fast_min_trick
 from .partition import WHOLE, RowPartition
 from .rank1 import rank1_duals
@@ -61,7 +62,7 @@ def _quantiles(a: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
     m = a.shape[-1]
     a = torch.where(torch.isnan(a).any(-1, keepdim=True), torch.nan, a)
     srt = torch.sort(a, dim=-1).values
-    pos = torch.tensor(qs, dtype=torch.float64, device=a.device) * float(m - 1)
+    pos = tracing.to_device(qs, a.device, torch.float64) * float(m - 1)
     lo_i = torch.floor(pos).clamp(0, m - 1).long()
     hi_i = torch.ceil(pos).clamp(0, m - 1).long()
     hi_w = (pos - torch.floor(pos))[:, None]
@@ -99,7 +100,7 @@ def sinkhorn_refine(
     u = u0.to(torch.float32)
     v = part.min((cost_r - u[..., :, None]).amin(-2))
     for eps_rel in torch.tensor(eps_schedule, dtype=torch.float32).tolist():
-        eps = torch.tensor(eps_rel, dtype=torch.float32, device=cost.device) * scale
+        eps = tracing.to_device(eps_rel, cost.device, torch.float32) * scale
         eps1 = eps[..., 0]
         for _ in range(iters_per_eps):
             u = -eps1 * torch.logsumexp((v[..., None, :] - cost_r) / eps, dim=-1)

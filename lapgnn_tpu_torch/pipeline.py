@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .device import resolve_device
 from .models import OneGNN
 from .ops.dual import fast_min_trick, robust_normalize
@@ -209,22 +210,28 @@ def predict_duals_fn(
         raise ValueError("seed_mode must be 'gnn', 'rank1', or 'auto'")
 
     @torch.inference_mode()
+    @tracing.spanned("predict", lambda cost: cost.device)
     def predict(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        dev = cost.device
         if seed_mode == "rank1":
-            u, _ = rank1_duals(cost)
+            with tracing.span("predict.seed", dev):
+                u, _ = rank1_duals(cost)
+                return u, fast_min_trick(cost, u)
+        with tracing.span("predict.features", dev):
+            if normalize_costs:
+                cost_in, mn, a = robust_normalize(cost)
+            else:
+                cost_in = cost
+            feats = fast_row_features(cost_in)
+        with tracing.span("predict.model", dev):
+            u = model(feats, cost=cost_in if use_cost_refinement else None)["u"]
+            u = u.to(cost.dtype)
+            if normalize_costs:
+                u = u * a[..., None] + mn[..., None]
+        with tracing.span("predict.seed", dev):
+            if seed_mode == "auto":
+                return auto_select_seed(cost, u)
             return u, fast_min_trick(cost, u)
-        if normalize_costs:
-            cost_in, mn, a = robust_normalize(cost)
-        else:
-            cost_in = cost
-        feats = fast_row_features(cost_in)
-        u = model(feats, cost=cost_in if use_cost_refinement else None)["u"]
-        u = u.to(cost.dtype)
-        if normalize_costs:
-            u = u * a[..., None] + mn[..., None]
-        if seed_mode == "auto":
-            return auto_select_seed(cost, u)
-        return u, fast_min_trick(cost, u)
 
     return predict
 
@@ -332,13 +339,21 @@ class WarmStartPipeline:
             out = torch.from_numpy(np.ascontiguousarray(c, self.transfer_dtype))
         return out if out.ndim == 3 else out[None]
 
+    @tracing.spanned("stage")
     def _stage(self, cost) -> Payload:
         """The residency rule: ``cost`` -> a batched payload on the device."""
         if isinstance(cost, torch.Tensor) and cost.device == self.device:
             t = cost.to(self._resident_dtype)
             return (t if t.ndim == 3 else t[None]).contiguous()
-        return _map_payload(lambda t: t.to(self.device), self._to_xfer(_host_array(cost)))
+        host = self._to_xfer(_host_array(cost))
+        return _map_payload(lambda t: tracing.to_device(t, self.device), host)
 
+    @tracing.spanned("readback")
+    def _read_back(self, packed: torch.Tensor) -> np.ndarray:
+        """The one copy of a call's packed result to the host."""
+        return tracing.to_host(packed).numpy()
+
+    @tracing.spanned("solve", lambda self, *args, **kwargs: self.device)
     def solve(self, cost, certify: bool = False) -> Dict[str, np.ndarray]:
         """Solve a batch.  Returns a dict with col_of_row, cost and
         used_fallback; with ``certify`` also certified, gap_bound, repaired,
@@ -349,7 +364,8 @@ class WarmStartPipeline:
         duals or polishes the assignment where it fails (as in the JAX
         version); certified entries take the float64 cost of their
         assignment.  Hybrid solves are float64-exact, so their certificate
-        fields are trivially satisfied."""
+        fields are trivially satisfied.  The call is the tracer's root span
+        ``lapgnn.solve``."""
         on_card = isinstance(cost, torch.Tensor) and cost.device.type == "cuda"
         shape = tuple(np.shape(cost))
         if not on_card and self._route_to_host(shape[-1]):
@@ -358,7 +374,7 @@ class WarmStartPipeline:
             raise ValueError(f"device mode solves square instances, got {shape}")
         payload = self._stage(cost)
         if self.mode == "device":
-            packed = self._e2e(payload).cpu().numpy()
+            packed = self._read_back(self._e2e(payload))
             out = self._unpack(packed, shape[-1])
             if certify:
                 self._certify_and_polish(_host_f64(cost), packed, out)
@@ -400,7 +416,14 @@ class WarmStartPipeline:
 
         ``microbatch > 1`` stacks consecutive instances into one batch (the
         last one ragged where the count does not divide) and splits the
-        results back."""
+        results back.
+
+        Each instance is one request of the tracer (``tracing``): the
+        workers' spans ``lapgnn.stream.pack``, ``.upload`` and ``.certify``
+        and the main thread's ``lapgnn.stream.solve`` (its wait for the
+        upload, ``lapgnn.stream.wait_upload``, the device solve and the
+        readback inside) and ``lapgnn.stream.wait_certify`` carry its
+        request id."""
         if self.mode != "device":
             raise ValueError("solve_stream requires mode='device'")
         costs = list(costs)
@@ -423,35 +446,46 @@ class WarmStartPipeline:
         upload_futures: list = []
         cert_futures: list = []
         results = []
+        requests = [tracing.new_request() for _ in costs]
+
+        def pack(k):
+            with tracing.span("stream.pack", request=requests[k]):
+                return self._pack(costs[k])
 
         def upload(k):
             host = pack_futures[k].result()
-            # the pinned host buffer stays referenced with its upload
-            return self._upload(host, copy_stream) + (host,)
+            with tracing.span("stream.upload", request=requests[k]):
+                # the pinned host buffer stays referenced with its upload
+                return self._upload(host, copy_stream) + (host,)
+
+        def certify_one(k, c_np, packed, out):
+            with tracing.span("stream.certify", request=requests[k]):
+                self._certify_and_polish(c_np, packed, out)
 
         try:
             for k in range(len(costs)):
                 while len(pack_futures) < min(len(costs), k + DEPTH + 1):
-                    pack_futures.append(pack_pool.submit(self._pack, costs[len(pack_futures)]))
+                    pack_futures.append(pack_pool.submit(pack, len(pack_futures)))
                 while len(upload_futures) < min(len(costs), k + DEPTH):
                     upload_futures.append(upload_pool.submit(upload, len(upload_futures)))
-                payload, event, _pinned = upload_futures[k].result()
-                upload_futures[k] = pack_futures[k] = None
-                if event is not None:
-                    current = torch.cuda.current_stream(self.device)
-                    current.wait_event(event)
-                    _map_payload(lambda t: t.record_stream(current), payload)
-                packed = self._e2e(payload).cpu().numpy()
+                with tracing.span("stream.solve", self.device, request=requests[k]):
+                    with tracing.span("stream.wait_upload"):
+                        payload, event, _pinned = upload_futures[k].result()
+                    upload_futures[k] = pack_futures[k] = None
+                    if event is not None:
+                        current = torch.cuda.current_stream(self.device)
+                        current.wait_event(event)
+                        _map_payload(lambda t: t.record_stream(current), payload)
+                    packed = self._read_back(self._e2e(payload))
                 del payload, _pinned  # the copy above waited for the upload
                 c_np = _host_f64(costs[k])
                 out = self._unpack(packed, c_np.shape[-1])
                 if certify:
-                    cert_futures.append(
-                        cert_pool.submit(self._certify_and_polish, c_np, packed, out)
-                    )
+                    cert_futures.append(cert_pool.submit(certify_one, k, c_np, packed, out))
                 results.append(out)
-            for f in cert_futures:
-                f.result()  # re-raises a worker's exception
+            for k, f in enumerate(cert_futures):
+                with tracing.span("stream.wait_certify", request=requests[k]):
+                    f.result()  # re-raises a worker's exception
         finally:
             pack_pool.shutdown(wait=True)
             upload_pool.shutdown(wait=True)
@@ -513,6 +547,7 @@ class WarmStartPipeline:
             _add_trivial_certificate(out)
         return out
 
+    @tracing.spanned("e2e", lambda self, payload: self.device)
     def _e2e(self, payload: Payload) -> torch.Tensor:
         """Decode, predict, then the seeded float32 solve instance by
         instance on the device (as the JAX serving program's ``lax.scan``);
@@ -521,7 +556,8 @@ class WarmStartPipeline:
         host (pipeline.py:440-489 of the JAX version).  Nothing is read back
         before that copy: ``last_solve_stats`` keeps each instance's loop
         counts on the device until a caller reads them."""
-        cost_t = _decode_transfer(payload)
+        with tracing.span("decode", self.device):
+            cost_t = _decode_transfer(payload)
         u, v = self._predict(cost_t)
         self.last_solve_stats = []
         rows = []
@@ -548,6 +584,7 @@ class WarmStartPipeline:
             "used_fallback": packed[:, 1] > 0.5,
         }
 
+    @tracing.spanned("certify")
     def _certify_and_polish(
         self, cost_np: np.ndarray, packed: np.ndarray, out: Dict[str, np.ndarray]
     ) -> None:
@@ -631,7 +668,7 @@ class WarmStartPipeline:
         from .solver.native import lapjv_seeded_native
 
         u, v = self._predict(_decode_transfer(payload))
-        packed_uv = torch.stack([u, v], dim=1).cpu().numpy()
+        packed_uv = tracing.to_host(torch.stack([u, v], dim=1)).numpy()
         u_np = packed_uv[:, 0, :].astype(np.float64)
         v_np = packed_uv[:, 1, :].astype(np.float64)
         cost_np = _host_f64(cost)
@@ -655,7 +692,8 @@ def _host_array(cost) -> np.ndarray:
     """A host view of an array or a tensor (a GPU tensor is copied; numpy has
     no bfloat16, so a bfloat16 tensor comes back as float32)."""
     if isinstance(cost, torch.Tensor):
-        t = cost.detach().cpu()
+        t = cost.detach()
+        t = tracing.to_host(t) if t.device.type != "cpu" else t
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(cost)
 

@@ -43,12 +43,11 @@ the row-sharded solve.
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..ops.cuda.augment import augment_sweep
 from ..ops.partition import WHOLE, RowPartition
 
@@ -88,11 +87,14 @@ DEVICE_COUNTS = ("greedy_rounds", "arr_rounds", "aug_rounds", "sweeps", "flip_st
 class SolveStats:
     """Loop counts of one solve, and its host syncs: each read of a device
     value by the host during the solve (a loop condition, the flips' copies
-    of the eager loops).  The kernels S1-S3 add their counts to
-    ``device_counts`` on the device; reading a count after the solve copies
-    them to the host once (not a sync of the solve).  With ``timed`` each
-    stage is timed: on the card by CUDA events recorded on the current
-    stream, read when ``stage_ms`` is, on the CPU by the host clock."""
+    of the eager loops), each also one of the tracer's ``host_syncs``.  The
+    kernels S1-S3 add their counts to ``device_counts`` on the device;
+    reading a count after the solve copies them to the host once (not a sync
+    of the solve).  Each stage is the tracer's span ``lapgnn.seeded.<stage>``
+    (``tracing``), on the host clock.  With ``timed`` the stages are timed
+    whether or not the tracer records: on the card by CUDA events recorded
+    on the current stream, read when ``stage_ms`` is, on the CPU by the host
+    clock."""
 
     def __init__(self, timed: bool = False):
         self.timed = timed
@@ -101,7 +103,7 @@ class SolveStats:
         self._host = dict.fromkeys(DEVICE_COUNTS, 0)
         self._device: Optional[torch.Tensor] = None
         self._stage_ms: Dict[str, float] = {}
-        self._events: List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]] = []
+        self._stages: List[tracing.Span] = []
 
     def device_counts(self, device: torch.device) -> torch.Tensor:
         """The (5,) int64 slots of ``DEVICE_COUNTS`` the kernels add to."""
@@ -117,46 +119,30 @@ class SolveStats:
 
     @property
     def stage_ms(self) -> Dict[str, float]:
-        for name, start, end in self._events:
-            end.synchronize()
-            self._stage_ms[name] = self._stage_ms.get(name, 0.0) + start.elapsed_time(end)
-        self._events = []
+        for span in self._stages:
+            name = span.name.rsplit(".", 1)[1]
+            self._stage_ms[name] = self._stage_ms.get(name, 0.0) + span.ms
+        self._stages = []
         return self._stage_ms
 
     def item(self, t: torch.Tensor):
         self.host_syncs += 1
-        return t.item()
+        return tracing.item(t)
 
     def to_host(self, t: torch.Tensor) -> List:
         self.host_syncs += 1
-        return t.cpu().tolist()
+        return tracing.to_host(t).tolist()
 
     def to_device(self, data: List, like: torch.Tensor) -> torch.Tensor:
         # a blocking host-to-device copy synchronises the stream as well
         self.host_syncs += 1
-        return torch.tensor(data, dtype=like.dtype).to(like.device)
+        return tracing.to_device(torch.tensor(data, dtype=like.dtype), like.device)
 
-    @contextmanager
     def stage(self, name: str, device: torch.device):
+        """The span ``lapgnn.seeded.<name>`` around one stage of the solve."""
         if not self.timed:
-            yield
-            return
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            try:
-                yield
-            finally:
-                end.record()
-                self._events.append((name, start, end))
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            ms = (time.perf_counter() - t0) * 1e3
-            self._stage_ms[name] = self._stage_ms.get(name, 0.0) + ms
+            return tracing.span("seeded." + name)
+        return tracing.span("seeded." + name, device, into=self._stages)
 
 
 def _count_property(name: str) -> property:

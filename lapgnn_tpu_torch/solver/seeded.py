@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..ops.cuda.arr import arr_auction
 from ..ops.cuda.greedy_match import greedy_match
 from ..ops.cuda.twomin import two_min
@@ -235,6 +236,7 @@ class SeededResult(NamedTuple):
     v: torch.Tensor
 
 
+@tracing.spanned("seeded", lambda C, *args, **kwargs: C.device)
 def lapjv_seeded_single(
     C: torch.Tensor,
     u_seed: torch.Tensor,
@@ -254,9 +256,10 @@ def lapjv_seeded_single(
     ``free_rows_frac`` of the rows free), "both" (both say so) or "never".
     ``arr_rounds`` overrides the ARR round cap max(64, n // 32).  With
     ``stats.timed`` the stages are timed as ``project_tighten``, ``greedy``,
-    ``arr``, ``augment`` and ``polish``.  With a row-sharded ``part``, C and
-    ``u_seed`` hold the rank's rows and ``v_seed`` every column; the result
-    is the whole matching on every rank."""
+    ``arr``, ``augment`` and ``polish``.  The solve is the tracer's span
+    ``lapgnn.seeded``, the stages' spans inside it.  With a row-sharded
+    ``part``, C and ``u_seed`` hold the rank's rows and ``v_seed`` every
+    column; the result is the whole matching on every rank."""
     if gate not in ("density", "free_rows", "both", "never"):
         raise ValueError(f"unknown gate '{gate}'")
     stats = SolveStats() if stats is None else stats

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed
 
+from .. import tracing
 from ..device import resolve_device
 from ..models import DualGNN
 from ..models.dual_gnn import DualLayer, attention_init_
@@ -112,13 +113,16 @@ def build_dual_gnn(
 
 
 def _forward_loss(model, cost, u_target, clip_sentinels, normalize_gap, generator):
-    with torch.no_grad():
+    dev = cost.device
+    with tracing.span("train.features", dev), torch.no_grad():
         gf = graph_features(cost)
-    preds = model(gf.edge_feat, gf.row_feat, gf.col_feat, generator=generator)
-    return dual_gnn_loss(
-        cost, preds, normalize_gap=normalize_gap, clip_sentinels=clip_sentinels,
-        u_target=u_target,
-    )
+    with tracing.span("train.forward", dev):
+        preds = model(gf.edge_feat, gf.row_feat, gf.col_feat, generator=generator)
+    with tracing.span("train.loss", dev):
+        return dual_gnn_loss(
+            cost, preds, normalize_gap=normalize_gap, clip_sentinels=clip_sentinels,
+            u_target=u_target,
+        )
 
 
 def dual_loss_and_grads(
@@ -134,7 +138,8 @@ def dual_loss_and_grads(
     oracle-dual term out.  A parameter the loss does not reach gets zeros,
     as from ``jax.grad``."""
     loss, metrics = _forward_loss(model, cost, u_target, clip_sentinels, normalize_gap, generator)
-    grads = torch.autograd.grad(loss, list(params), allow_unused=True, materialize_grads=True)
+    with tracing.span("train.backward", cost.device):
+        grads = torch.autograd.grad(loss, list(params), allow_unused=True, materialize_grads=True)
     return loss, metrics, grads
 
 
@@ -147,14 +152,18 @@ def make_dual_train_step(
 ):
     """``step(cost, u_target, generator=None) -> metrics``: one optimizer
     update of ``optimizer.params`` in place; the metrics stay on the
-    device."""
+    device.  A step is the tracer's root span ``lapgnn.train.step``, with
+    ``train.features``, ``.forward``, ``.loss``, ``.backward`` and
+    ``.optimizer`` inside."""
 
+    @tracing.spanned("train.step", lambda cost, *args, **kwargs: cost.device)
     def step(cost: torch.Tensor, u_target: torch.Tensor, generator=None) -> Dict[str, torch.Tensor]:
         loss, metrics, grads = dual_loss_and_grads(
             model, optimizer.params, cost, u_target if supervise_duals else None,
             clip_sentinels, normalize_gap, generator,
         )
-        optimizer.step(grads)
+        with tracing.span("train.optimizer", cost.device):
+            optimizer.step(grads)
         return {
             "loss": loss.detach(),
             "primal_gap_mean": metrics["primal_gap"].detach().mean(),

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from .. import tracing
 from ..bench.harness import synchronize_block
 from ..solver.seeded import lapjv_seeded_batch
 
@@ -144,7 +145,10 @@ def profile_pipeline(pipe, C: np.ndarray, repeats: int = 5) -> Dict[str, float]:
 def trace(log_dir: Optional[Union[str, Path]] = None):
     """``torch.profiler`` over the block (CPU, and CUDA where there is a GPU),
     written to ``log_dir/trace.json`` as a Chrome trace when the block ends.
-    ``log_dir`` defaults to ``lapgnn_trace`` in the temporary directory."""
+    ``log_dir`` defaults to ``lapgnn_trace`` in the temporary directory.
+    The program's spans (``tracing``) appear in the Chrome trace; the tracer
+    drops the ones it recorded here, unless a ``tracing.record()`` block
+    holds the call."""
     from torch.profiler import ProfilerActivity, profile
 
     log_dir = Path(log_dir) if log_dir is not None else Path(tempfile.gettempdir()) / "lapgnn_trace"
@@ -152,6 +156,11 @@ def trace(log_dir: Optional[Union[str, Path]] = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield log_dir
-    prof.export_chrome_trace(str(log_dir / "trace.json"))
+    first = tracing.mark()
+    try:
+        with profile(activities=activities) as prof:
+            yield log_dir
+        prof.export_chrome_trace(str(log_dir / "trace.json"))
+    finally:
+        if not tracing.enabled():
+            tracing.discard(first)

@@ -41,7 +41,11 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      K3's tolerance, K3 not launched).  The training loss's greedy bound
      kernel bit for bit against its plain loop and against the CPU, at n in
      {1, 7, 512, 1024, 2048, 4097} on tie-heavy rows, a row of +inf, rows
-     with +inf tails, a row with a NaN, with and without a row mask.
+     with +inf tails, a row with a NaN, with and without a row mask.  The
+     seed policy's Sinkhorn ladder kernel against the eager loop on the
+     same card at n = 2048 and 8192 (resident and streamed layouts) and on
+     the unaligned view: within ``ops/cuda/sinkhorn.py``'s tolerance, the
+     projected pair exactly feasible.
   3. Hybrid end to end: ``WarmStartPipeline(mode="hybrid", seed_mode="auto",
      normalize_costs=True)`` with ``artifacts/one_gnn_default`` (OneGNN,
      hidden 192, 4 layers, top-k 16) solves one instance of each of four
@@ -55,7 +59,7 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      equal SciPy's (1e-12 relative), be certified and not routed to the host;
      the solve must read nothing back on the host (``host_syncs`` 0 in
      every solve), S1, S2 and S3 must each launch in every instance besides
-     K1-K3, and one uncertified ``solve`` must make exactly one
+     K1-K3 and the Sinkhorn ladder, and one uncertified ``solve`` must make exactly one
      device-to-host copy (torch.profiler).  Per instance: the certificate's
      route (raw, repair or polish), predict, device-solve and certify times,
      and the solver's loop counts.
@@ -114,10 +118,11 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      the train phase's pool while ``compare`` runs): a JSON line a (model,
      family) with the published r5 gap beside it, every metric finite,
      every instance feasible and assisted, the launch counters, zeroed just
-     before, showing K1, K2, K3 and the greedy kernel, and each of those
-     kernels' calls there held against its plain version on the arguments
-     the path gave it (K1, K2 and the greedy bound bit for bit, K3 within
-     rtol 2e-5 / atol 2e-6 with its selection channels bit-equal).  The
+     before, showing K1, K2, K3, the greedy kernel and the Sinkhorn ladder,
+     and each of those kernels' calls there held against its plain version
+     on the arguments the path gave it (K1, K2 and the greedy bound bit for
+     bit, K3 within rtol 2e-5 / atol 2e-6 with its selection channels
+     bit-equal, the ladder within its tolerance and exactly feasible).  The
      timing branch (``time_solvers=True``) on 2 uniform instances;
      ``graph_features`` and
      the r5 forward on the card against the port on the CPU at n = 512
@@ -217,6 +222,12 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      and S3 at both sizes with their grids (blocks, shared memory), S2's
      layout and its other layout forced, and each one's sync floor: its
      barriers on that state times one barrier timed alone on its own grid.
+     The Sinkhorn ladder kernel at both sizes (L2 flushed and left in L2)
+     beside the eager loop on the card and its bound (``_sinkhorn_bound_ms``:
+     every half-pass's read of the matrix from device memory); no single
+     PyTorch call computes the ladder, so ``library_ms`` is null.  At 2048
+     also the seed policy with the kernel and with the eager loop, and its
+     pieces alone (host clock).
 
 Output: a JSON line per phase, then the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -299,6 +310,13 @@ KERNELS = {
         "route": "cuda",
         "source": "lapgnn_tpu_torch/csrc/greedy_match.cu",
         "replaces": "lapgnn_tpu/solver/seeded.py:99",
+    },
+    # no Pallas kernel: the seed policy's Sinkhorn loop, jnp.logsumexp passes
+    # that XLA fuses
+    "sinkhorn_ladder": {
+        "route": "cuda",
+        "source": "lapgnn_tpu_torch/csrc/sinkhorn.cu",
+        "replaces": "lapgnn_tpu/ops/sinkhorn.py:91",
     },
 }
 SOLVER_KERNELS = ("augment_sweep", "arr_auction", "greedy_match")
@@ -400,6 +418,70 @@ def _solver_bound_ms(name: str, elements: int, n: int, itemsize: int = 4):
     t_bytes = from_hbm * itemsize / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), every_read
+
+
+def _sinkhorn_bound_ms(B: int, n: int, half_passes: int):
+    """Least time for one ladder launch: every half-pass reads the (B, n, n)
+    float32 matrix and the two projections read the true one, each read
+    counted from device memory (the kernel's resident layout reads it once
+    there), against five float32 operations an element a half-pass (a
+    subtract, a divide, the subtract of the running maximum, an exp, an add)
+    and two a projection's element.  Returns (bound, what bounds it, the
+    one-read device-memory time)."""
+    elements = B * n * n
+    t_bytes = (half_passes + 2) * elements * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = (5 * half_passes + 4) * elements / F32_OPS_PER_S * 1e3
+    one_read = 2 * elements * 4 / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), one_read
+
+
+def _sinkhorn_inputs(torch, C, seed):
+    """What ``sinkhorn_refine`` hands the ladder for a (B, n, n) card batch:
+    the clipped matrix, float32 row duals, the scale and the rungs."""
+    from lapgnn_tpu_torch.ops import sinkhorn as sink
+    from lapgnn_tpu_torch.ops.sentinels import clip_cost_sentinels
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u0 = torch.randn(C.shape[:2], generator=g, device="cuda") * 0.1
+    cost_r = clip_cost_sentinels(C).contiguous()
+    rungs = sink.DEFAULT_EPS_SCHEDULE
+    if C.shape[-1] >= sink.COLD_FINISH_MIN_N:
+        rungs = rungs + (sink.COLD_FINISH_EPS,)
+    eps_rel = torch.tensor(rungs, dtype=torch.float32).tolist()
+    return cost_r, u0, sink._robust_scale(cost_r), eps_rel, sink.DEFAULT_ITERS_PER_EPS
+
+
+def _hold_sinkhorn(torch, args, got, what):
+    """The ladder kernel's (u, v) on ``args`` against the eager loop on the
+    same card: within the module's tolerance (NaN where NaN) and exactly
+    feasible for the true matrix.  Returns the largest difference."""
+    from lapgnn_tpu_torch.ops.cuda import sinkhorn as ksink
+
+    cost_r, cost = args[0], args[1]
+    want = ksink.sinkhorn_ladder_plain(*args)
+    tol = ksink.tolerance(torch.nan_to_num(cost_r, nan=0.0, posinf=0.0, neginf=0.0))
+    err = 0.0
+    for a, b in zip(got, want):
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"sinkhorn_ladder: NaN where the loop has none ({what})")
+        fin = torch.isfinite(b)
+        d = torch.where(fin, (a - b).abs(), torch.zeros_like(a))
+        if not bool((d <= tol).all()) or not torch.equal(a[~fin], b[~fin]):
+            raise AssertionError(f"sinkhorn_ladder: {float(d.max())} from the eager loop, "
+                                 f"tolerance {float(tol.max())} ({what})")
+        err = max(err, float(d.max()))
+    red = cost - got[0][..., :, None] - got[1][..., None, :]
+    if bool((red < 0).any()):
+        raise AssertionError(f"sinkhorn_ladder: the projected pair is not feasible ({what})")
+    return err
+
+
+def _check_sinkhorn(torch, C, seed, what):
+    from lapgnn_tpu_torch.ops.cuda.sinkhorn import sinkhorn_ladder_kernel
+
+    cost_r, *rest = _sinkhorn_inputs(torch, C, seed)
+    args = (cost_r, C, *rest)
+    return _hold_sinkhorn(torch, args, sinkhorn_ladder_kernel(*args), what)
 
 
 def phase_build(torch, strict=True):
@@ -757,6 +839,9 @@ def phase_compare(torch, seed):
             _check_two_min(torch, two_min_kernel(S64, v64, unroll=r), two_min_plain(S64, v64),
                            f"float64 inf/NaN rows, n={n}, unroll {r}")
         del C64, S64
+        if n in (N_E2E, 8192):
+            errs["sinkhorn_ladder"] = max(errs["sinkhorn_ladder"],
+                                          _check_sinkhorn(torch, C, seed + n, f"n={n}"))
         rel = ((k3 - sort_path).abs() / (sort_path.abs() + K3_ATOL / K3_RTOL)).amax((0, 1))
         detail.append({"n": n, "k3_max_abs_err": e3,
                        "k3_vs_sort_path_max_rel_per_channel": [float(x) for x in rel]})
@@ -824,6 +909,8 @@ def phase_compare(torch, seed):
     if col_min_geometry(n, n, Cu.data_ptr() % 16 == 0, batch=2, path="cluster").vector:
         raise AssertionError("the unaligned view would take 16-byte loads")
     hold_col_min(Cu, vu, "unaligned view")
+    errs["sinkhorn_ladder"] = max(errs["sinkhorn_ladder"],
+                                  _check_sinkhorn(torch, Cu, seed, "unaligned view"))
     _check_two_min(torch, two_min(_nan_inf_rows(torch, Cu), vu),
                    two_min_plain(_nan_inf_rows(torch, Cu), vu), "inf/NaN rows, unaligned view")
 
@@ -1276,7 +1363,7 @@ def phase_device_e2e(torch, seed):
     import numpy as np
 
     from lapgnn_tpu_torch.ops.cuda import (arr_auction, augment_sweep, col_min, greedy_match,
-                                           min_trick, row_features_stats)
+                                           min_trick, row_features_stats, sinkhorn_ladder)
     from lapgnn_tpu_torch.pipeline import WarmStartPipeline
     from lapgnn_tpu_torch.solver.jv import DEVICE_COUNTS, SolveStats
     from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
@@ -1306,7 +1393,7 @@ def phase_device_e2e(torch, seed):
 
     per = len(costs)
     if (row_features_stats.launches < per or col_min.launches < per
-            or min_trick.launches < 2 * per
+            or min_trick.launches < 2 * per or sinkhorn_ladder.launches < per
             or min(min(p.values()) for p in per_instance.values()) < 1):
         raise AssertionError(
             f"the device path skipped a kernel: launches {launches}, "
@@ -1850,6 +1937,19 @@ def _capture(calls, clone=False):
     return make
 
 
+def _capture_pair(calls):
+    """``_capture`` for a wrapper that returns a pair of tensors (copies)."""
+    def make(real):
+        def run(*args, **kwargs):
+            out = real(*args, **kwargs)
+            calls.append((args, tuple(t.clone() for t in out)))
+            return out
+
+        return run
+
+    return make
+
+
 def _stage_ms(torch, step, model, opt, cost, u, gen, owner=None, features="row_features",
               loss="one_gnn_loss"):
     """One call of the real train step ``step`` cut at its stages by CUDA
@@ -2153,6 +2253,7 @@ def phase_eval(torch, seed, records=None):
 
     import numpy as np
 
+    import lapgnn_tpu_torch.ops.cuda as cuda_ops
     import lapgnn_tpu_torch.ops.cuda.features as cuda_features
     import lapgnn_tpu_torch.ops.dual as dual_mod
     import lapgnn_tpu_torch.ops.features as features_mod
@@ -2190,10 +2291,12 @@ def phase_eval(torch, seed, records=None):
 
     # the ladder, counted: every (model, family) through evaluate_pipeline,
     # each kernel's arguments and result kept where the path calls it
-    seen = {k: [] for k in ("col_min", "min_trick", "row_features_stats", "greedy_total")}
+    seen = {k: [] for k in ("col_min", "min_trick", "row_features_stats", "greedy_total",
+                            "sinkhorn_ladder")}
     _zero_launches()
     result, ms_per_instance = {}, {}
-    with _wrapped(cuda_features, "col_min", _capture(seen["col_min"], clone=True)), \
+    with _wrapped(cuda_ops, "sinkhorn_ladder", _capture_pair(seen["sinkhorn_ladder"])), \
+            _wrapped(cuda_features, "col_min", _capture(seen["col_min"], clone=True)), \
             _wrapped(dual_mod, "min_trick", _capture(seen["min_trick"], clone=True)), \
             _wrapped(features_mod, "row_features_stats",
                      _capture(seen["row_features_stats"], clone=True)), \
@@ -2206,7 +2309,7 @@ def phase_eval(torch, seed, records=None):
             ms_per_instance[name] = (time.perf_counter() - t0) * 1e3 / n_inst
     launches = _read_launches()
     want = {"row_features_stats": n_inst, "col_min": n_inst, "min_trick": 2 * n_inst,
-            "greedy_total": 2 * (n_inst + n_sentinel)}
+            "greedy_total": 2 * (n_inst + n_sentinel), "sinkhorn_ladder": 2 * n_inst}
     if any(launches[k] < v for k, v in want.items()):
         raise AssertionError(f"the evaluation path skipped a kernel: launches {launches}, "
                              f"at least {want}")
@@ -2224,6 +2327,8 @@ def phase_eval(torch, seed, records=None):
                                        what)
             elif k == "row_features_stats":
                 e = _hold_k3(torch, got, args[0], what, finite=bool(torch.isfinite(args[0]).all()))
+            elif k == "sinkhorn_ladder":
+                e = _hold_sinkhorn(torch, args, got, what)
             else:
                 plain = greedy_total_plain(*args)
                 if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
@@ -4161,6 +4266,60 @@ def _s1_layouts(torch, C, after, flush, reps):
     }
 
 
+def _sinkhorn_times(torch, C, flush, no_flush, seed, reps):
+    """The ladder on a (1, n, n) uniform batch: the kernel (L2 flushed, and
+    left in L2), the eager loop on the card, the bound; at the e2e size also
+    the seed policy ``auto_select_seed`` with the kernel and with the eager
+    loop (host clock, each call synchronised: the eager loop's time is its
+    launches)."""
+    import lapgnn_tpu_torch.ops.cuda as cuda_ops
+    from lapgnn_tpu_torch.ops.cuda import sinkhorn as ksink
+    from lapgnn_tpu_torch.ops.sinkhorn import auto_select_seed
+
+    cost_r, u0, scale, eps_rel, iters = _sinkhorn_inputs(torch, C, seed)
+    args = (cost_r, C, u0, scale, eps_rel, iters)
+    n = C.shape[-1]
+    g = ksink.sinkhorn_geometry(n, torch.cuda.get_device_properties(0).multi_processor_count)
+    half_passes = 2 * len(eps_rel) * iters
+    bound, by, one_read = _sinkhorn_bound_ms(C.shape[0], n, half_passes)
+    row = {
+        "ms": _time_ms(torch, lambda: ksink.sinkhorn_ladder_kernel(*args), reps, flush),
+        "ms_l2_resident": _time_ms(torch, lambda: ksink.sinkhorn_ladder_kernel(*args), reps,
+                                   no_flush),
+        "plain_ms": _time_ms(torch, lambda: ksink.sinkhorn_ladder_plain(*args), max(3, reps // 4),
+                             flush),
+        "library_ms": None, "bound_ms": bound, "bound_by": by, "one_read_ms": one_read,
+        "half_passes": half_passes, "layout": "resident" if g.resident else "streamed",
+        "blocks": g.blocks, "rows_a_block": g.rows,
+        "max_abs_err": _hold_sinkhorn(torch, args, ksink.sinkhorn_ladder_kernel(*args),
+                                      f"times, n={n}"),
+    }
+    if n == N_E2E:
+        from lapgnn_tpu_torch.ops.dual import fast_min_trick
+        from lapgnn_tpu_torch.ops.rank1 import rank1_duals
+        from lapgnn_tpu_torch.ops.sentinels import clip_cost_sentinels
+        from lapgnn_tpu_torch.ops.sinkhorn import _robust_scale, uniq_argmin_count
+
+        v0 = fast_min_trick(C, u0)
+        # the seed policy's pieces, each alone (host clock, synchronised)
+        parts = {"clip_cost_sentinels": lambda: clip_cost_sentinels(C),
+                 "robust_scale": lambda: _robust_scale(cost_r),
+                 "rank1_duals": lambda: rank1_duals(C), "min_trick": lambda: fast_min_trick(C, u0),
+                 "uniq_argmin_count": lambda: uniq_argmin_count(C, u0, v0),
+                 "ladder_kernel": lambda: ksink.sinkhorn_ladder_kernel(*args)}
+        with torch.inference_mode():
+            row["seed_parts_ms_host_clock"] = {k: _ms_host(torch, f, 10) for k, f in parts.items()}
+            row["seed_policy_ms_host_clock"] = _ms_host(torch, lambda: auto_select_seed(C, u0), 10)
+            real = cuda_ops.sinkhorn_ladder
+            cuda_ops.sinkhorn_ladder = ksink.sinkhorn_ladder_plain
+            try:
+                row["seed_policy_eager_ladder_ms_host_clock"] = _ms_host(
+                    torch, lambda: auto_select_seed(C, u0), 10)
+            finally:
+                cuda_ops.sinkhorn_ladder = real
+    return row
+
+
 def phase_times(torch, seed):
     from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
@@ -4230,6 +4389,8 @@ def phase_times(torch, seed):
         del C64, v64
         for name, row in _solver_times(torch, C[0], flush, 10 if n == N_E2E else 3).items():
             out.setdefault(name, {})[n] = row
+        out.setdefault("sinkhorn_ladder", {})[n] = _sinkhorn_times(torch, C, flush, no_flush,
+                                                                    seed, reps)
     n = 4096
     C = _batch(torch, n, seed + 7 * n, fams=("uniform",))
     v = torch.randn((1, n), device="cuda", generator=g) * 0.3
@@ -4406,6 +4567,20 @@ def main() -> int:
                             "launches_parallel_train": par_train["launches"][kname],
                             "max_abs_err": vs_cpu["max_abs_err"], "n": N_E2E, **t[N_E2E],
                             "at_n_8192": t[8192], "card": card})
+            continue
+        if kname == "sinkhorn_ladder":
+            # the seed policy's ladder: launches on every path that serves
+            # 'auto', the error against the eager loop over the compare,
+            # eval and times phases, times on a uniform instance
+            t = times[kname]
+            kernels.append({"name": kname, **info, "launches": launches[kname],
+                            **{f"launches_{ph}": res["launches"].get(kname, 0) for ph, res in
+                               (("eval", evaluated), ("dual_train", dual), ("front_ends", front),
+                                ("parallel", par), ("parallel_train", par_train))},
+                            "n": N_E2E, **t[N_E2E], "at_n_8192": t[8192],
+                            "max_abs_err": max(errs[kname], evaluated["max_abs_err"][kname],
+                                               t[N_E2E]["max_abs_err"], t[8192]["max_abs_err"]),
+                            "card": card})
             continue
         if kname == "greedy_total":
             # the training path's kernel: launches from the train phase, times

@@ -7,6 +7,7 @@ from .colmin import col_min, min_trick
 from .features import row_features_stats
 from .greedy import greedy_total
 from .greedy_match import greedy_match
+from .sinkhorn import sinkhorn_ladder
 from .twomin import two_min
 
 __all__ = [
@@ -17,10 +18,11 @@ __all__ = [
     "greedy_total",
     "min_trick",
     "row_features_stats",
+    "sinkhorn_ladder",
     "two_min",
     "WRAPPERS",
 ]
 
 # Every kernel wrapper; each counts its launches in ``.launches``.
 WRAPPERS = (col_min, min_trick, row_features_stats, two_min, greedy_total, augment_sweep,
-            arr_auction, greedy_match)
+            arr_auction, greedy_match, sinkhorn_ladder)

@@ -120,6 +120,20 @@ def _bind_greedy_match(lib: ctypes.CDLL) -> None:
     lib.lapgnn_greedy_match.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP]
 
 
+def _bind_sinkhorn(lib: ctypes.CDLL) -> None:
+    lib.lapgnn_sinkhorn_occupancy.restype = _I
+    lib.lapgnn_sinkhorn_occupancy.argtypes = [_I, _I, _I]
+    lib.lapgnn_sinkhorn_static_smem.restype = _I
+    lib.lapgnn_sinkhorn_static_smem.argtypes = []
+    lib.lapgnn_sinkhorn_work_bytes.restype = _LL
+    lib.lapgnn_sinkhorn_work_bytes.argtypes = [_I, _I, _I]
+    lib.lapgnn_sinkhorn_ladder_offset.restype = _LL
+    lib.lapgnn_sinkhorn_ladder_offset.argtypes = []
+    lib.lapgnn_sinkhorn.restype = _I
+    lib.lapgnn_sinkhorn.argtypes = [*[_VP] * 7, ctypes.POINTER(_F), _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _VP]
+
+
 _TWOMIN_H = CSRC / "twomin.cuh"
 _BARRIER_H = CSRC / "grid_barrier.cuh"
 _ROUNDS_H = CSRC / "free_rows.cuh"
@@ -145,6 +159,9 @@ KERNEL_LIBS: Dict[str, SharedLibrary] = {
     "greedy_match": SharedLibrary(
         CSRC / "greedy_match.cu", "kernels", _SOLVER_FLAGS, _bind_greedy_match,
         deps=[_BARRIER_H, _ROUNDS_H],
+    ),
+    "sinkhorn": SharedLibrary(
+        CSRC / "sinkhorn.cu", "kernels", _nvcc_command, _bind_sinkhorn, deps=[_BARRIER_H]
     ),
 }
 

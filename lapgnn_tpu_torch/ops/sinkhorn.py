@@ -22,7 +22,9 @@ from .sentinels import clip_cost_sentinels
 
 __all__ = [
     "sinkhorn_refine",
+    "sinkhorn_ladder_eager",
     "auto_select_seed",
+    "seed_candidates",
     "uniq_argmin_count",
     "collision_veto_mask",
     "DEFAULT_EPS_SCHEDULE",
@@ -85,7 +87,12 @@ def sinkhorn_refine(
     ``cost`` is (B, n, n) or (n, n), ``u0`` matches.  Costs
     ``2 * len(eps_schedule) * iters_per_eps`` reads of C (64 at the defaults).
     With a row partition ``part`` cost and u hold its rows: each row pass is
-    local, each column pass a logsumexp combined over every row."""
+    local, each column pass a logsumexp combined over every row.
+
+    A float32 cost on the card with the whole partition runs the ladder and
+    the projections as one kernel (``ops.cuda.sinkhorn_ladder``, within its
+    stated tolerance of this loop); a CPU tensor, another dtype or a row
+    block of several ranks runs the eager loop (``sinkhorn_ladder_eager``)."""
     if cost.ndim == 2:
         u, v = sinkhorn_refine(
             cost[None], u0[None], eps_schedule, iters_per_eps, clip_sentinels, part
@@ -95,12 +102,34 @@ def sinkhorn_refine(
         eps_schedule = DEFAULT_EPS_SCHEDULE + (COLD_FINISH_EPS,)
     cost_f = cost.to(torch.float32)
     cost_r = clip_cost_sentinels(cost_f, part=part) if clip_sentinels else cost_f
-    scale = _robust_scale(cost_r, part)[:, None, None]
-
+    scale = _robust_scale(cost_r, part)
     u = u0.to(torch.float32)
+    eps_rel = torch.tensor(eps_schedule, dtype=torch.float32).tolist()
+    if cost.device.type != "cpu" and cost.dtype == torch.float32 and part is WHOLE:
+        from .cuda import sinkhorn_ladder
+
+        return sinkhorn_ladder(cost_r.contiguous(), cost.contiguous(), u.contiguous(), scale,
+                               eps_rel, iters_per_eps)
+    return sinkhorn_ladder_eager(cost_r, cost, u, scale, eps_rel, iters_per_eps, part)
+
+
+def sinkhorn_ladder_eager(
+    cost_r: torch.Tensor,
+    cost: torch.Tensor,
+    u: torch.Tensor,
+    scale: torch.Tensor,
+    eps_rel: Sequence[float],
+    iters_per_eps: int,
+    part: RowPartition = WHOLE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ladder as eager passes: (B, n, n) float32 ``cost_r`` (the matrix
+    the ladder reads), the true ``cost``, float32 row duals ``u`` (B, n),
+    the (B,) ``scale``, the rungs' temperatures relative to it.  One
+    blocking copy a rung (its temperature)."""
+    scale = scale[:, None, None]
     v = part.min((cost_r - u[..., :, None]).amin(-2))
-    for eps_rel in torch.tensor(eps_schedule, dtype=torch.float32).tolist():
-        eps = tracing.to_device(eps_rel, cost.device, torch.float32) * scale
+    for eps_r in eps_rel:
+        eps = tracing.to_device(eps_r, cost.device, torch.float32) * scale
         eps1 = eps[..., 0]
         for _ in range(iters_per_eps):
             u = -eps1 * torch.logsumexp((v[..., None, :] - cost_r) / eps, dim=-1)
@@ -151,11 +180,24 @@ def auto_select_seed(
     evaluation passes the plain ``ops.dual.min_trick_v``, as the JAX
     evaluation does.  With a row partition ``part`` cost and u_gnn hold its
     rows, and ``min_trick`` must combine over every row (``part.min_trick``)."""
-    if min_trick is None:
-        min_trick = fast_min_trick
     if cost.ndim == 2:
         u, v = auto_select_seed(cost[None], u_gnn[None], min_trick, part)
         return u[0], v[0]
+    us, vs, _, best = seed_candidates(cost, u_gnn, min_trick, part)
+    return _take(us, best), _take(vs, best)
+
+
+def seed_candidates(
+    cost: torch.Tensor,
+    u_gnn: torch.Tensor,
+    min_trick: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    part: RowPartition = WHOLE,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``auto_select_seed``'s three candidates on a (B, n, n) batch, the
+    model's, the rank-1 and the refined: (K, B, n) u and v, their (K, B)
+    dual objectives and the (B,) index of the one it serves."""
+    if min_trick is None:
+        min_trick = fast_min_trick
 
     def objective(u, v):
         return part.sum(u.sum(-1)) + v.sum(-1)
@@ -172,7 +214,6 @@ def auto_select_seed(
     objs.append(objective(u_sk, v_sk))
     uniq = torch.stack([uniq_argmin_count(cost, u, v, part) for u, v in zip(us, vs)], 0)
     ok = collision_veto_mask(uniq, cost.shape[-1])
-    obj = torch.where(ok, torch.stack(objs, 0), -torch.inf)
-    best = obj.argmax(0)
-    return _take(torch.stack(us, 0), best), _take(torch.stack(vs, 0), best)
-
+    objs = torch.stack(objs, 0)
+    best = torch.where(ok, objs, -torch.inf).argmax(0)
+    return torch.stack(us, 0), torch.stack(vs, 0), objs, best

@@ -429,6 +429,24 @@ def test_host_syncs_equal_warn_mode_on_the_card(cuda, path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fam", ["uniform", "sparse", "tie"])
+def test_solve_sync_counts_on_the_card(cuda, fam):
+    """At n = 2048 a default ``solve(C)`` makes four host syncs (the upload,
+    the row features' positional code, the seed's quantiles, the readback),
+    and the seed policy one of them: the Sinkhorn ladder is one kernel whose
+    temperatures are made on the card."""
+    params, meta, _ = load_checkpoint(CKPT)
+    pipe = WarmStartPipeline(build_model_from_meta(meta), params, device=cuda)
+    C = _cost(fam, 2048, 8)
+    pipe.solve(C)  # builds the kernels
+    with tracing.record():
+        pipe.solve(C)
+    counts = {s.name: s.counts("host_syncs") for s in tracing.take()}
+    assert counts["lapgnn.predict.seed"] == 1
+    assert counts["lapgnn.solve"] == 4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("timed", [False, True])
 def test_stage_spans_take_events_only_when_timed(cuda, timed):
     C = torch.from_numpy(_cost("uniform", 256, 5)).to(cuda)

@@ -28,11 +28,9 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .ops.dual import check_dual_feasible, min_trick_v
-from .ops.features import graph_features
+from .ops.dual import check_dual_feasible
 from .ops.rank1 import rank1_duals
-from .ops.sinkhorn import auto_select_seed
-from .pipeline import device_batch
+from .pipeline import device_batch, predict_duals_fn
 from .train.convert import params_from_flax
 from .train.loss import BIG, greedy_primal_upper
 
@@ -44,12 +42,14 @@ class DualGNNPredictor:
     both models by the same code: u from the model, v from the min-trick
     (v_hint is a training aid, not the serving column dual).
 
-    ``params`` is the flax tree ``train.checkpoint.load_checkpoint`` returns
-    or the model's own state dict.  ``seed_mode`` as the OneGNN pipeline's:
-    'gnn' serves the model's u, 'rank1' the rank-1 analytic duals, 'auto'
-    (the default) the shared policy ``ops.sinkhorn.auto_select_seed`` with
-    the plain ``min_trick_v``, as the JAX predictor passes it.  ``device``
-    is the GPU by default (raises without one)."""
+    The predict is the serving pipeline's own (``pipeline.predict_duals_fn``
+    of a DualGNN, which ``WarmStartPipeline`` runs): this class only loads
+    the weights and moves the cost to the device.  ``params`` is the flax
+    tree ``train.checkpoint.load_checkpoint`` returns or the model's own
+    state dict.  ``seed_mode`` as the OneGNN pipeline's: 'gnn' serves the
+    model's u, 'rank1' the rank-1 analytic duals, 'auto' (the default) the
+    shared policy ``ops.sinkhorn.auto_select_seed``.  ``device`` is the GPU
+    by default (raises without one)."""
 
     def __init__(
         self,
@@ -58,8 +58,6 @@ class DualGNNPredictor:
         seed_mode: str = "auto",
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if seed_mode not in ("gnn", "rank1", "auto"):
-            raise ValueError("seed_mode must be 'gnn', 'rank1', or 'auto'")
         self.seed_mode = seed_mode
         self.device = resolve_device(device)
         state = params
@@ -67,19 +65,11 @@ class DualGNNPredictor:
             state = params_from_flax(params)
         model.load_state_dict(state)
         self.model = model.to(self.device).eval()
+        self._predict = predict_duals_fn(self.model, seed_mode=seed_mode)
 
-    @torch.inference_mode()
     def predict_duals(self, cost):
         """(B, n, n) -> ((B, n) u, (B, n) v) on the device, dual-feasible."""
-        cost = device_batch(cost, self.device)
-        if self.seed_mode == "rank1":
-            u, _ = rank1_duals(cost)
-            return u, min_trick_v(cost, u)
-        gf = graph_features(cost)
-        u = self.model(gf.edge_feat, gf.row_feat, gf.col_feat)["u"].to(cost.dtype)
-        if self.seed_mode == "auto":
-            return auto_select_seed(cost, u, min_trick=min_trick_v)
-        return u, min_trick_v(cost, u)
+        return self._predict(device_batch(cost, self.device))
 
 
 def _host64(x) -> np.ndarray:

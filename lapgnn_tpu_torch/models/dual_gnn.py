@@ -21,6 +21,11 @@ ways.  Dropout runs only when the caller passes a ``torch.Generator``, as in
 draw from the caller's, so a rematerialised layer redraws the same masks.
 The input widths are the features': 14 a node, 10 an edge.
 
+Each layer is two spans of the tracer (``tracing``): ``lapgnn.dual.edge``,
+the edge MLP and the two edge terms, and ``lapgnn.dual.attention``, the node
+projections, both attention directions and the node updates.  Each
+``DualGNN.forward`` call adds one to the always-on counter ``dual_forward``.
+
 ``forward(..., part=...)`` runs the model on one tile of a 2-D edge
 partition (``parallel.dual.EdgeTiles``): the edge features of a block of
 rows and a block of columns, the node features of those rows and columns.
@@ -165,51 +170,54 @@ class DualLayer(nn.Module):
                 raise ValueError("a tile takes no mask")
             g_edge, g_row, g_col = (torch.Generator(edge_feat.device).manual_seed(s)
                                     for s in part.dropout_seeds(seed))
-        # one name for every stage, so that each (B, N, M, ·) activation is
-        # freed as soon as the next exists: at most two of them live at once
-        e = dropout(_gelu(self.edge_fc1(edge_feat)), self.dropout, g_edge)
-        e = self.edge_fc2(e)
-        e = _gelu(e)
-        e = self.edge_fc3(e)  # (B, N, M, hidden)
-        edge_terms = torch.matmul(e.view(-1, self.hidden_dim), self._edge_weight())
-        del e
-        edge_terms = edge_terms.view(B, N, M, 2 * H)
-        r_edge = edge_terms[..., :H]
-        c_edge = edge_terms[..., H:].transpose(1, 2)  # "bijhd,hd->bjih"
+        dev = edge_feat.device
+        with tracing.span("dual.edge", dev):
+            # one name for every stage, so that each (B, N, M, ·) activation is
+            # freed as soon as the next exists: at most two of them live at once
+            e = dropout(_gelu(self.edge_fc1(edge_feat)), self.dropout, g_edge)
+            e = self.edge_fc2(e)
+            e = _gelu(e)
+            e = self.edge_fc3(e)  # (B, N, M, hidden)
+            edge_terms = torch.matmul(e.view(-1, self.hidden_dim), self._edge_weight())
+            del e
+            edge_terms = edge_terms.view(B, N, M, 2 * H)
+            r_edge = edge_terms[..., :H]
+            c_edge = edge_terms[..., H:].transpose(1, 2)  # "bijhd,hd->bjih"
 
-        rp = self._heads(self.row_proj(row_embed))
-        cp = self._heads(self.col_proj(col_embed))
-        rv = self._heads(self.row_val(row_embed))
-        cv = self._heads(self.col_val(col_embed))
+        with tracing.span("dual.attention", dev):
+            rp = self._heads(self.row_proj(row_embed))
+            cp = self._heads(self.col_proj(col_embed))
+            rv = self._heads(self.row_val(row_embed))
+            cv = self._heads(self.col_val(col_embed))
 
-        # rows receive from columns
-        r_dst = (rp * self.attn_row[:, 0]).sum(-1)
-        r_src = (cp * self.attn_row[:, 1]).sum(-1)
-        # columns receive from rows, over the transposed edge term
-        c_dst = (cp * self.attn_col[:, 0]).sum(-1)
-        c_src = (rp * self.attn_col[:, 1]).sum(-1)
-        if part is None:
-            row_message = self._attention(
-                r_src, r_dst, r_edge, self.attn_row_bias, cv, mask, g_edge
-            )
-            col_message = self._attention(
-                c_src, c_dst, c_edge, self.attn_col_bias, rv, mask, g_edge
-            )
-        else:
-            row_message = self._tile_attention(
-                r_src, r_dst, r_edge, self.attn_row_bias, cv, g_edge,
-                part.vary_cols, part.vary_rows, part.over_cols,
-            )
-            col_message = self._tile_attention(
-                c_src, c_dst, c_edge, self.attn_col_bias, rv, g_edge,
-                part.vary_rows, part.vary_cols, part.over_rows,
-            )
+            # rows receive from columns
+            r_dst = (rp * self.attn_row[:, 0]).sum(-1)
+            r_src = (cp * self.attn_row[:, 1]).sum(-1)
+            # columns receive from rows, over the transposed edge term
+            c_dst = (cp * self.attn_col[:, 0]).sum(-1)
+            c_src = (rp * self.attn_col[:, 1]).sum(-1)
+            if part is None:
+                row_message = self._attention(
+                    r_src, r_dst, r_edge, self.attn_row_bias, cv, mask, g_edge
+                )
+                col_message = self._attention(
+                    c_src, c_dst, c_edge, self.attn_col_bias, rv, mask, g_edge
+                )
+            else:
+                row_message = self._tile_attention(
+                    r_src, r_dst, r_edge, self.attn_row_bias, cv, g_edge,
+                    part.vary_cols, part.vary_rows, part.over_cols,
+                )
+                col_message = self._tile_attention(
+                    c_src, c_dst, c_edge, self.attn_col_bias, rv, g_edge,
+                    part.vary_rows, part.vary_cols, part.over_rows,
+                )
 
-        ru = dropout(_gelu(self.row_update(torch.cat([row_embed, row_message], -1))),
-                     self.dropout, g_row)
-        cu = dropout(_gelu(self.col_update(torch.cat([col_embed, col_message], -1))),
-                     self.dropout, g_col)
-        return self.row_norm(row_embed + ru), self.col_norm(col_embed + cu)
+            ru = dropout(_gelu(self.row_update(torch.cat([row_embed, row_message], -1))),
+                         self.dropout, g_row)
+            cu = dropout(_gelu(self.col_update(torch.cat([col_embed, col_message], -1))),
+                         self.dropout, g_col)
+            return self.row_norm(row_embed + ru), self.col_norm(col_embed + cu)
 
 
 class DualGNN(nn.Module):
@@ -268,6 +276,7 @@ class DualGNN(nn.Module):
     ) -> dict:
         if edge_feat.ndim != 4:
             raise ValueError("edge_feat must be (batch, n, n, F)")
+        tracing.count("dual_forward")
         row_embed = self.row_encoder_norm(_gelu(self.row_encoder_fc(row_feat)))
         col_embed = self.col_encoder_norm(_gelu(self.col_encoder_fc(col_feat)))
         for layer in self.layer:

@@ -1,8 +1,10 @@
-"""Warm-start pipeline: C -> features -> OneGNN -> seed policy -> exact solve.
+"""Warm-start pipeline: C -> features -> GNN -> seed policy -> exact solve.
 
 Port of ``lapgnn_tpu/pipeline.py``.  Both modes share the dual prediction on
-the GPU (row features through kernel K3, which runs K1; the seed policy's
-min-trick projections through K2):
+the GPU: for a OneGNN the row features through kernel K3, which runs K1; for
+a DualGNN the dense graph features over every edge (the JAX
+``evaluation.DualGNNPredictor``'s predict); then the seed policy, whose
+min-trick projections go through K2:
 
   * ``device`` (the default, as in the JAX class): the seeded
     Jonker–Volgenant solve runs on the GPU in float32
@@ -38,9 +40,9 @@ import torch
 
 from . import tracing
 from .device import resolve_device
-from .models import OneGNN
+from .models import DualGNN, OneGNN
 from .ops.dual import fast_min_trick, robust_normalize
-from .ops.features import fast_row_features
+from .ops.features import fast_row_features, graph_features
 from .ops.rank1 import rank1_duals
 from .ops.sinkhorn import auto_select_seed
 from .solver.jv import SolveStats
@@ -192,7 +194,7 @@ def _map_payload(fn: Callable[[torch.Tensor], torch.Tensor], payload: Payload) -
 
 
 def predict_duals_fn(
-    model: OneGNN,
+    model: Union[OneGNN, DualGNN],
     use_cost_refinement: bool = True,
     normalize_costs: bool = False,
     seed_mode: str = "auto",
@@ -205,9 +207,18 @@ def predict_duals_fn(
     ``seed_mode`` 'gnn' serves the model's seed, 'rank1' the closed-form
     rank-1 seed, and 'auto' selects among the model seed, the rank-1 seed and
     the Sinkhorn-refined winner (``ops.sinkhorn.auto_select_seed``).  The
-    model's weights live in the module, so ``predict`` takes no parameters."""
+    model's weights live in the module, so ``predict`` takes no parameters.
+
+    A ``DualGNN`` reads the dense graph features of the raw costs
+    (``ops.features.graph_features``, which scales them itself, so
+    ``normalize_costs`` raises) and runs without dropout; its u goes through
+    the same seed policy, and its v_hint is not served: the min-trick gives
+    v, as the original system's evaluation does (``gnn/eval.py:119``)."""
     if seed_mode not in ("gnn", "rank1", "auto"):
         raise ValueError("seed_mode must be 'gnn', 'rank1', or 'auto'")
+    dual = isinstance(model, DualGNN)
+    if dual and normalize_costs:
+        raise ValueError("a DualGNN scales the raw costs itself: pass normalize_costs=False")
 
     @torch.inference_mode()
     @tracing.spanned("predict", lambda cost: cost.device)
@@ -218,13 +229,19 @@ def predict_duals_fn(
                 u, _ = rank1_duals(cost)
                 return u, fast_min_trick(cost, u)
         with tracing.span("predict.features", dev):
-            if normalize_costs:
-                cost_in, mn, a = robust_normalize(cost)
+            if dual:
+                feats = graph_features(cost)
             else:
-                cost_in = cost
-            feats = fast_row_features(cost_in)
+                if normalize_costs:
+                    cost_in, mn, a = robust_normalize(cost)
+                else:
+                    cost_in = cost
+                feats = fast_row_features(cost_in)
         with tracing.span("predict.model", dev):
-            u = model(feats, cost=cost_in if use_cost_refinement else None)["u"]
+            if dual:
+                u = model(feats.edge_feat, feats.row_feat, feats.col_feat)["u"]
+            else:
+                u = model(feats, cost=cost_in if use_cost_refinement else None)["u"]
             u = u.to(cost.dtype)
             if normalize_costs:
                 u = u * a[..., None] + mn[..., None]
@@ -240,9 +257,12 @@ class WarmStartPipeline:
     """Batched GNN-seeded LAP solving.
 
     Args follow the JAX class, plus ``device``: the GPU by default (raises
-    without one); pass ``device="cpu"`` to run on the CPU.  ``params`` is
-    the flax parameter tree that ``train.checkpoint.load_checkpoint`` returns;
-    it is loaded into ``model``, which moves to ``device``.
+    without one); pass ``device="cpu"`` to run on the CPU.  ``model`` is a
+    ``OneGNN`` or a ``DualGNN`` (``train.build_model_from_meta`` builds
+    either from a checkpoint); a DualGNN needs ``normalize_costs=False``
+    (``predict_duals_fn``).  ``params`` is the flax parameter tree that
+    ``train.checkpoint.load_checkpoint`` returns; it is loaded into
+    ``model``, which moves to ``device``.
 
     ``transfer_dtype`` is how a cost reaches the device: 'float32', the
     16-bit floats 'bfloat16' / 'float16', or, in device mode only, 'uint16'
@@ -257,7 +277,7 @@ class WarmStartPipeline:
 
     def __init__(
         self,
-        model: OneGNN,
+        model: Union[OneGNN, DualGNN],
         params,
         mode: str = "device",
         eps: float = 1e-12,

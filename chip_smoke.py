@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0]
-                          [--phases build,compare,device,times,stream,train,eval,dual_train,front_ends,parallel,parallel_train]
+                          [--phases build,compare,device,times,stream,train,eval,dual_train,front_ends,parallel,parallel_train,dual_edge]
 
 ``--phases`` runs a subset (for a first look at a changed kernel,
 ``build,device`` after a change to the device solver or its kernels S1-S3,
@@ -11,8 +11,8 @@ one to the training path, ``build,eval`` after one to the evaluation path,
 ``build,dual_train`` after one to DualGNN training, ``build,front_ends``
 after one to the solver front ends or the benchmark CLIs, ``build,parallel``
 after one to the parallel package's serving, ``build,parallel_train`` after
-one to its training) and then prints no ``ok`` line; with no arguments every
-phase runs.
+one to its training, ``build,dual_edge`` after one to the DualGNN edge
+kernel) and then prints no ``ok`` line; with no arguments every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -228,6 +228,22 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      PyTorch call computes the ladder, so ``library_ms`` is null.  At 2048
      also the seed policy with the kernel and with the eager loop, and its
      pieces alone (host clock).
+ 15. Dual edge: DualGNN's edge MLP kernel (``ops/cuda/dual_edge.py``,
+     ``csrc/dual_edge.cu``, dual_gnn_r5's first layer folded) against its
+     plain version on the same card at edge counts that are no multiple of
+     its tile ((B, n) = (1, 1), (1, 3), (3, 33), (1, 257), (3, 257) and the
+     timed shapes), on the sparse family's -1e15 channel, on features with
+     NaN and +-inf (NaN and infinities where the plain version has them) and
+     on an unaligned view: within ``RTOL`` of each instance's largest term.
+     dual_gnn_r5's whole inference forward on a noisy_linear instance at
+     n = 2048 against its unfolded eager forward: one launch a layer, u
+     within 2e-5 relative.  The serving call of the DualGNN cell
+     (``WarmStartPipeline(r5, mode="device", normalize_costs=False).solve``)
+     on each family at n = 2048: one launch a layer (the kernels line's
+     ``launches``), the cost within 1e-5 of SciPy's.  Then the kernel at the serving cell's (1, 2048)
+     and the training cell's (4, 512), L2 flushed, queued behind the spin
+     kernel, beside its bound (``_dual_edge_bound_ms``), the plain version
+     and the unfolded eager chain it replaces.
 
 Output: a JSON line per phase, then the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -317,6 +333,12 @@ KERNELS = {
         "route": "cuda",
         "source": "lapgnn_tpu_torch/csrc/sinkhorn.cu",
         "replaces": "lapgnn_tpu/ops/sinkhorn.py:91",
+    },
+    # no Pallas kernel: DualGNN's edge MLP, an nn.Dense chain XLA compiles
+    "dual_edge_terms": {
+        "route": "cuda",
+        "source": "lapgnn_tpu_torch/csrc/dual_edge.cu",
+        "replaces": "lapgnn_tpu/models/dual_gnn.py:107",
     },
 }
 SOLVER_KERNELS = ("augment_sweep", "arr_auction", "greedy_match")
@@ -2217,17 +2239,23 @@ def _event_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def _dual_forward_bound_ms(n, hidden, layers, n_params):
+def _dual_forward_bound_ms(n, hidden, layers, n_params, folded_heads=None):
     """Least time of one DualGNN forward at batch 1: its matrix-product
     FLOPs over the float32 rate against its bytes (edge features, node
     features and weights read once, u and v_hint written once) over the HBM
     rate.  FLOPs a layer: the edge MLP 2·n²·(10·128 + 128·128 + 128·hidden),
     the two edge terms and the two attention messages 8·n²·hidden, the four
     node projections and the two updates 16·n·hidden²; the encoders
-    4·n·14·hidden.  Elementwise work (GELU, softmax, LayerNorm) is not
-    counted."""
-    flops = layers * (2 * n * n * (10 * 128 + 128 * 128 + 128 * hidden)
-                      + 8 * n * n * hidden + 16 * n * hidden * hidden) + 4 * n * 14 * hidden
+    4·n·14·hidden.  With ``folded_heads`` (the inference forward, whose
+    kernel folds fc3 into the edge terms) the edge MLP and the edge terms
+    are 2·n²·(10·128 + 128·128 + 128·2·heads) and the messages 4·n²·hidden.
+    Elementwise work (GELU, softmax, LayerNorm) is not counted."""
+    if folded_heads is None:
+        per_layer = 2 * n * n * (10 * 128 + 128 * 128 + 128 * hidden) + 8 * n * n * hidden
+    else:
+        per_layer = (2 * n * n * (10 * 128 + 128 * 128 + 128 * 2 * folded_heads)
+                     + 4 * n * n * hidden)
+    flops = layers * (per_layer + 16 * n * hidden * hidden) + 4 * n * 14 * hidden
     nbytes = 4 * (n * n * 10 + 2 * n * 14 + n_params + 2 * n)
     t_ops = flops / F32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2406,7 +2434,7 @@ def phase_eval(torch, seed, records=None):
                                reps=3)
             peak = torch.cuda.max_memory_allocated()
         bound, by, flops = _dual_forward_bound_ms(n, dual_model.hidden_dim, dual_model.num_layers,
-                                                  n_params)
+                                                  n_params, folded_heads=dual_model.heads)
         times[n] = {"graph_features_ms": feats_ms, "forward_ms": fwd_ms, "forward_bound_ms": bound,
                     "forward_bound_by": by, "forward_flops": flops,
                     "forward_tflops_per_s": flops / fwd_ms / 1e9,
@@ -4320,6 +4348,155 @@ def _sinkhorn_times(torch, C, flush, no_flush, seed, reps):
     return row
 
 
+# The dual_edge phase: the serving cell's shape and the training cell's.
+DUAL_EDGE_TIMED = ((1, 2048), (4, 512))  # (B, n)
+DUAL_EDGE_RAGGED = ((1, 1), (1, 3), (3, 33), (1, 257), (3, 257))
+DUAL_EDGE_U_GAP = 2e-5  # the serving cell's limit on u
+
+
+def _dual_edge_bound_ms(B: int, n: int, out: int):
+    """Least time of one edge-MLP launch on (B, n, n) edges: 2·10·128 +
+    2·128·128 + 2·128·out float32 operations an edge (fc1, fc2 and the
+    folded fc3) against 40 bytes read and 4·out written an edge.  Returns
+    (bound, what bounds it)."""
+    edges = B * n * n
+    t_ops = edges * (2 * 10 * 128 + 2 * 128 * 128 + 2 * 128 * out) / F32_OPS_PER_S * 1e3
+    t_bytes = edges * (40 + 4 * out) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _eager_edge_terms(torch, layer, x):
+    """The unfolded eager edge stage (``DualLayer.forward`` off the kernel):
+    fc1, GELU, fc2, GELU, fc3, then the block-diagonal edge weight."""
+    from torch.nn import functional as F
+
+    e = F.gelu(layer.edge_fc1(x), approximate="none")
+    e = layer.edge_fc3(F.gelu(layer.edge_fc2(e), approximate="none"))
+    return torch.matmul(e.view(-1, layer.hidden_dim), layer._edge_weight())
+
+
+def _hold_dual_edge(torch, x, w, what):
+    """The kernel's terms on (x, w) against the plain version on the same
+    card: NaN and infinities where it has them, the rest within the module's
+    tolerance.  Returns the largest difference over its instance's largest
+    finite term."""
+    from lapgnn_tpu_torch.ops.cuda import dual_edge as kedge
+
+    got = kedge.dual_edge_terms(x, *w)
+    want = kedge.dual_edge_terms_plain(x, *w)
+    fin = torch.isfinite(want)
+    inf = torch.isinf(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(got[inf], want[inf]):
+        raise AssertionError(f"dual_edge_terms: NaN or infinities differ from the plain "
+                             f"version ({what})")
+    diff = torch.where(fin, (got - want).abs(), torch.zeros_like(want))
+    tol = kedge.tolerance(want)
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"dual_edge_terms: {float(diff.max())} from the plain version, "
+                             f"tolerance {float(tol.max())} ({what})")
+    scale = (tol / kedge.RTOL).clamp_min(torch.finfo(torch.float32).tiny)
+    return float((diff / scale).max())
+
+
+def phase_dual_edge(torch, seed):
+    """The DualGNN edge MLP kernel against its plain version and inside
+    dual_gnn_r5's forward, then its times (see the module's phase 15)."""
+    import numpy as np
+
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+    from lapgnn_tpu_torch.ops.cuda import dual_edge as kedge
+    from lapgnn_tpu_torch.ops.features import graph_features
+    from lapgnn_tpu_torch.pipeline import WarmStartPipeline
+    from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint, params_from_flax
+
+    params, meta, _ = load_checkpoint(DUAL_CHECKPOINT)
+    model = build_model_from_meta(meta)
+    model.load_state_dict(params_from_flax(params))
+    model.to("cuda")
+    for p in model.parameters():
+        p.requires_grad_(False)
+    layer = model.layer[0]
+    wf, bf = kedge.fold_edge_weights(layer.edge_fc3.weight, layer.edge_fc3.bias,
+                                     layer._edge_weight())
+    w = (layer.edge_fc1.weight, layer.edge_fc1.bias, layer.edge_fc2.weight,
+         layer.edge_fc2.bias, wf, bf)
+    rng = np.random.default_rng(seed + 2100)
+
+    def feats(fam, B, n):
+        C = np.stack([FAMILIES[fam](n, rng) for _ in range(B)]).astype(np.float32)
+        return graph_features(torch.from_numpy(C).cuda())
+
+    errs = {}
+    with torch.inference_mode():
+        for B, n in DUAL_EDGE_RAGGED + DUAL_EDGE_TIMED:
+            errs[f"uniform_{B}x{n}"] = _hold_dual_edge(torch, feats("uniform", B, n).edge_feat, w,
+                                                       f"uniform ({B}, {n})")
+        x = feats("sparse", 2, 257).edge_feat
+        if not float(x.amin()) < -1e14:
+            raise AssertionError(f"the sparse family's features reach {float(x.amin())}")
+        errs["sparse_2x257"] = _hold_dual_edge(torch, x, w, "sparse (2, 257)")
+        clean = feats("noisy_linear", 1, 33).edge_feat
+        x = clean.clone()
+        x[0, 0, 0, 3], x[0, 1, 2, 0], x[0, 5, 5, 7] = float("nan"), float("inf"), -float("inf")
+        x[0, 9, 4, :] = float("inf")
+        errs["nan_inf_1x33"] = _hold_dual_edge(torch, x, w, "NaN and infinities")
+        buf = torch.cat([torch.zeros(1, device="cuda"), clean.flatten()])
+        errs["unaligned_1x33"] = _hold_dual_edge(torch, buf[1:].view(clean.shape), w,
+                                                 "unaligned view")
+
+    # dual_gnn_r5's whole forward, kernel against the unfolded eager chain
+    with torch.no_grad():
+        gf = feats("noisy_linear", 1, N_E2E)
+    with torch.inference_mode():
+        before = kedge.dual_edge_terms.launches
+        u = model(gf.edge_feat, gf.row_feat, gf.col_feat)["u"]
+        launches = kedge.dual_edge_terms.launches - before
+    with torch.enable_grad():  # off the kernel; no parameter requires a gradient
+        u_eager = model(gf.edge_feat, gf.row_feat, gf.col_feat)["u"]
+    u_gap = float((u - u_eager).norm() / u_eager.norm())
+    if launches != model.num_layers or not u_gap <= DUAL_EDGE_U_GAP:
+        raise AssertionError(f"dual_gnn_r5 at n = {N_E2E}: {launches} kernel launches, u "
+                             f"{u_gap} from the eager forward (limit {DUAL_EDGE_U_GAP})")
+    del gf, u, u_eager
+
+    # cell D's call: solve(C) of the serving pipeline with r5 on the n = 2048
+    # instances, one launch a layer, each cost within the cell's opt_gap of SciPy's
+    pipe = WarmStartPipeline(build_model_from_meta(meta), params, mode="device",
+                             normalize_costs=False)
+    serve = {}
+    for f, C in _e2e_costs(seed + 2101).items():
+        _zero_launches()
+        got = float(pipe.solve(C)["cost"][0])
+        torch.cuda.synchronize()
+        opt = _scipy_opt(C.astype(np.float64))
+        serve[f] = kedge.dual_edge_terms.launches
+        if serve[f] != model.num_layers or not abs(got - opt) <= 1e-5 * max(1.0, abs(opt)):
+            raise AssertionError(f"dual_gnn_r5 serving {f} at n = {N_E2E}: {serve[f]} kernel "
+                                 f"launches, cost {got!r} against SciPy's {opt!r}")
+    del pipe
+
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    times = {}
+    with torch.inference_mode():
+        for B, n in DUAL_EDGE_TIMED:
+            x = feats("uniform", B, n).edge_feat
+            bound, by = _dual_edge_bound_ms(B, n, wf.shape[-1])
+            ms = _time_ms(torch, lambda: kedge.dual_edge_terms(x, *w), 20, flush)
+            times[f"{B}x{n}"] = {
+                "ms": ms,
+                "plain_ms": _time_ms(torch, lambda: kedge.dual_edge_terms_plain(x, *w), 5, flush),
+                "eager_unfolded_ms": _time_ms(torch, lambda: _eager_edge_terms(torch, layer, x),
+                                              5, flush),
+                "library_ms": None, "bound_ms": bound, "bound_by": by,
+                "bound_share_pct": 100.0 * bound / ms,
+            }
+            del x
+    res = {"max_rel_err": max(errs.values()), "rel_err": errs, "u_gap_2048": u_gap,
+           "launches_a_forward": launches, "launches_a_serving_call": serve, "times": times}
+    _emit({"phase": "dual_edge", **res})
+    return res
+
+
 def phase_times(torch, seed):
     from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
@@ -4485,7 +4662,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
                     help="comma-separated subset of build,compare,device,times,stream,train,"
-                         "eval,dual_train,front_ends,parallel,parallel_train (no ok line)")
+                         "eval,dual_train,front_ends,parallel,parallel_train,dual_edge "
+                         "(no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -4517,7 +4695,8 @@ def main() -> int:
                       "dual_train": lambda: phase_dual_train(torch, args.seed),
                       "front_ends": lambda: phase_front_ends(torch, args.seed),
                       "parallel": lambda: phase_parallel(torch, args.seed),
-                      "parallel_train": lambda: phase_parallel_train(torch, args.seed)}
+                      "parallel_train": lambda: phase_parallel_train(torch, args.seed),
+                      "dual_edge": lambda: phase_dual_edge(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
@@ -4547,6 +4726,7 @@ def main() -> int:
         par = phase_parallel(torch, args.seed)
         par_train = phase_parallel_train(torch, args.seed)
         times = phase_times(torch, args.seed)
+        dual_edge = phase_dual_edge(torch, args.seed)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4581,6 +4761,23 @@ def main() -> int:
                             "max_abs_err": max(errs[kname], evaluated["max_abs_err"][kname],
                                                t[N_E2E]["max_abs_err"], t[8192]["max_abs_err"]),
                             "card": card})
+            continue
+        if kname == "dual_edge_terms":
+            # DualGNN's edge MLP: launches in a serving call of r5 (cell D's
+            # solve(C), one a layer) and on every other path, the error against
+            # its plain version, times at the serving cell's shape and the
+            # training cell's
+            t = dual_edge["times"]
+            serve = dual_edge["launches_a_serving_call"]
+            kernels.append({"name": kname, **info, "launches": serve[FAMILIES_E2E[0]],
+                            "launches_a_serving_call": serve,
+                            "launches_default_pipeline": launches[kname],
+                            **{f"launches_{ph}": res["launches"].get(kname, 0) for ph, res in
+                               (("eval", evaluated), ("dual_train", dual), ("front_ends", front),
+                                ("parallel", par), ("parallel_train", par_train))},
+                            "n": N_E2E, **t[f"1x{N_E2E}"], "at_4x512": t["4x512"],
+                            "max_rel_err": dual_edge["max_rel_err"],
+                            "u_gap_2048": dual_edge["u_gap_2048"], "card": card})
             continue
         if kname == "greedy_total":
             # the training path's kernel: launches from the train phase, times

@@ -12,7 +12,13 @@ The edge MLP's output e (B, n, n, hidden) is only read through the two edge
 terms.  Both are taken in one matrix product of ``e.view(-1, hidden)`` with a
 block-diagonal (hidden, 2·heads) matrix, so e is read once and never
 permuted or copied (at n = 2048 and hidden 256 it is 4 GiB); the column
-direction reads its half transposed, a view.
+direction reads its half transposed, a view.  A float32 inference forward on
+the card (no gradient, no dropout, at most 16 heads) folds ``edge_fc3`` into
+that matrix and runs the edge MLP and both terms as one kernel
+(``ops.cuda.dual_edge.dual_edge_terms``), which keeps every 128-wide
+activation on chip; it agrees with the unfolded chain within float32
+rounding.  Training, dropout, CPU tensors and wider layers run the unfolded
+chain.
 
 Attribute names follow the flax tree (``row_encoder_fc`` … ``layer.{i}`` for
 ``layer_{i}`` … ``col_out``); ``train.convert`` maps the parameters both
@@ -51,6 +57,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import tracing
+from ..ops.cuda.dual_edge import MAX_OUT, dual_edge_terms, fold_edge_weights
 from ..ops.features import EDGE_FEATURE_DIM, NODE_FEATURE_DIM
 from .one_gnn import dropout
 
@@ -172,15 +179,24 @@ class DualLayer(nn.Module):
                                     for s in part.dropout_seeds(seed))
         dev = edge_feat.device
         with tracing.span("dual.edge", dev):
-            # one name for every stage, so that each (B, N, M, ·) activation is
-            # freed as soon as the next exists: at most two of them live at once
-            e = dropout(_gelu(self.edge_fc1(edge_feat)), self.dropout, g_edge)
-            e = self.edge_fc2(e)
-            e = _gelu(e)
-            e = self.edge_fc3(e)  # (B, N, M, hidden)
-            edge_terms = torch.matmul(e.view(-1, self.hidden_dim), self._edge_weight())
-            del e
-            edge_terms = edge_terms.view(B, N, M, 2 * H)
+            if (dev.type == "cuda" and edge_feat.dtype == torch.float32 and seed is None
+                    and not torch.is_grad_enabled() and 2 * H <= MAX_OUT):
+                # inference on the card: one kernel, fc3 folded into the edge weight
+                wf, bf = fold_edge_weights(self.edge_fc3.weight, self.edge_fc3.bias,
+                                           self._edge_weight())
+                edge_terms = dual_edge_terms(
+                    edge_feat.contiguous(), self.edge_fc1.weight, self.edge_fc1.bias,
+                    self.edge_fc2.weight, self.edge_fc2.bias, wf, bf)
+            else:
+                # one name for every stage, so that each (B, N, M, ·) activation
+                # is freed as soon as the next exists: at most two live at once
+                e = dropout(_gelu(self.edge_fc1(edge_feat)), self.dropout, g_edge)
+                e = self.edge_fc2(e)
+                e = _gelu(e)
+                e = self.edge_fc3(e)  # (B, N, M, hidden)
+                edge_terms = torch.matmul(e.view(-1, self.hidden_dim), self._edge_weight())
+                del e
+                edge_terms = edge_terms.view(B, N, M, 2 * H)
             r_edge = edge_terms[..., :H]
             c_edge = edge_terms[..., H:].transpose(1, 2)  # "bijhd,hd->bjih"
 

@@ -4,6 +4,7 @@ versions and launch counters."""
 from .arr import arr_auction
 from .augment import augment_sweep
 from .colmin import col_min, min_trick
+from .dual_edge import dual_edge_terms
 from .features import row_features_stats
 from .greedy import greedy_total
 from .greedy_match import greedy_match
@@ -14,6 +15,7 @@ __all__ = [
     "arr_auction",
     "augment_sweep",
     "col_min",
+    "dual_edge_terms",
     "greedy_match",
     "greedy_total",
     "min_trick",
@@ -25,4 +27,4 @@ __all__ = [
 
 # Every kernel wrapper; each counts its launches in ``.launches``.
 WRAPPERS = (col_min, min_trick, row_features_stats, two_min, greedy_total, augment_sweep,
-            arr_auction, greedy_match, sinkhorn_ladder)
+            arr_auction, greedy_match, sinkhorn_ladder, dual_edge_terms)

@@ -134,6 +134,11 @@ def _bind_sinkhorn(lib: ctypes.CDLL) -> None:
                                     _I, _I, _VP]
 
 
+def _bind_dual_edge(lib: ctypes.CDLL) -> None:
+    lib.lapgnn_dual_edge.restype = _I
+    lib.lapgnn_dual_edge.argtypes = [*[_VP] * 8, _LL, _I, _I, _VP]
+
+
 _TWOMIN_H = CSRC / "twomin.cuh"
 _BARRIER_H = CSRC / "grid_barrier.cuh"
 _ROUNDS_H = CSRC / "free_rows.cuh"
@@ -163,6 +168,7 @@ KERNEL_LIBS: Dict[str, SharedLibrary] = {
     "sinkhorn": SharedLibrary(
         CSRC / "sinkhorn.cu", "kernels", _nvcc_command, _bind_sinkhorn, deps=[_BARRIER_H]
     ),
+    "dual_edge": SharedLibrary(CSRC / "dual_edge.cu", "kernels", _nvcc_command, _bind_dual_edge),
 }
 
 

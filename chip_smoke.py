@@ -950,7 +950,6 @@ def _check_long_row(torch, seed):
     the sort-based row features, not to the kernel: held against
     ``row_features`` within K3's tolerance, with K3's counter unmoved."""
     from lapgnn_tpu_torch.ops import features
-    from lapgnn_tpu_torch.ops.cuda import row_features_stats
     from lapgnn_tpu_torch.ops.cuda.features import row_features_max_m
 
     limit = row_features_max_m(torch.device("cuda"))
@@ -959,11 +958,11 @@ def _check_long_row(torch, seed):
         raise AssertionError(f"K3 takes rows of {limit} columns; the long-row check needs more")
     g = torch.Generator(device="cuda").manual_seed(seed + 31)
     C = torch.rand((1, 2, m), generator=g, device="cuda")
-    before = row_features_stats.launches
+    since = _launches()
     got = features.fast_row_features(C)
     want = features.row_features(C)
     torch.cuda.synchronize()
-    if row_features_stats.launches != before:
+    if _launches(since)["row_features_stats"]:
         raise AssertionError("a row past K3's limit launched K3")
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=K3_RTOL, atol=K3_ATOL):
@@ -1038,23 +1037,20 @@ def _scipy_opt(C64) -> float:
     return float(C64[r, c].sum())
 
 
-def _zero_launches():
-    from lapgnn_tpu_torch.ops.cuda import WRAPPERS
+def _launches(since=None):
+    """Each kernel wrapper's launches by name: the tracer's counters
+    ``launch.<wrapper>``, or their rise since ``since``, an earlier
+    ``_launches()``."""
+    from lapgnn_tpu_torch import tracing
+    from lapgnn_tpu_torch.ops import cuda
 
-    for w in WRAPPERS:
-        w.launches = 0
-
-
-def _read_launches():
-    from lapgnn_tpu_torch.ops.cuda import WRAPPERS
-
-    return {w.__name__: w.launches for w in WRAPPERS}
+    now, since = tracing.counters(), since or {}
+    return {w: now.get(f"launch.{w}", 0) - since.get(w, 0) for w in cuda.__all__}
 
 
 def phase_e2e(torch, seed):
     import numpy as np
 
-    from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats
     from lapgnn_tpu_torch.pipeline import WarmStartPipeline
     from lapgnn_tpu_torch.solver.native import lapjv_native, lapjv_seeded_native
     from lapgnn_tpu_torch.solver.verification import certify_assignment
@@ -1068,13 +1064,14 @@ def phase_e2e(torch, seed):
     n = N_E2E
     costs = _e2e_costs(seed)
 
-    _zero_launches()
+    since = _launches()
     results = {f: pipe.solve(C, certify=True) for f, C in costs.items()}
     torch.cuda.synchronize()
-    launches = _read_launches()
+    launches = _launches(since)
 
     per = len(costs)
-    if row_features_stats.launches < per or col_min.launches < per or min_trick.launches < 2 * per:
+    if (launches["row_features_stats"] < per or launches["col_min"] < per
+            or launches["min_trick"] < 2 * per):
         raise AssertionError(f"the hybrid path skipped a kernel: launches {launches}")
     report = {}
     for f, C in costs.items():
@@ -1235,8 +1232,6 @@ def phase_stream(torch, seed):
     the card against the CPU decode of the same payloads, bit for bit."""
     import numpy as np
 
-    from lapgnn_tpu_torch.ops.cuda import (arr_auction, augment_sweep, col_min, greedy_match,
-                                           min_trick, row_features_stats)
     from lapgnn_tpu_torch.pipeline import WarmStartPipeline
     from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint
 
@@ -1254,16 +1249,16 @@ def phase_stream(torch, seed):
         # warm the stream's code path on small instances (the kernels are built)
         pipe.solve_stream(_stream_instances(64, fams[:mb], seed + 1), certify=True,
                           microbatch=mb)
-        _zero_launches()
+        since = _launches()
         torch.cuda.synchronize()
         with _TimedParts(torch, pipe) as in_stream:
             t0 = time.perf_counter()
             streamed = pipe.solve_stream(costs, certify=True, microbatch=mb)
             wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = _read_launches()
-        if (row_features_stats.launches < len(chunks) or col_min.launches < len(chunks)
-                or min_trick.launches < 2 * len(chunks)
-                or min(augment_sweep.launches, arr_auction.launches, greedy_match.launches) < 1):
+        launches = _launches(since)
+        if (launches["row_features_stats"] < len(chunks) or launches["col_min"] < len(chunks)
+                or launches["min_trick"] < 2 * len(chunks)
+                or min(launches[k] for k in ("augment_sweep", "arr_auction", "greedy_match")) < 1):
             raise AssertionError(f"{label}: the stream skipped a kernel: launches {launches}")
 
         serial, serial_ms = [], []
@@ -1384,8 +1379,6 @@ def phase_device_e2e(torch, seed):
     result), the float64 certificate on the host."""
     import numpy as np
 
-    from lapgnn_tpu_torch.ops.cuda import (arr_auction, augment_sweep, col_min, greedy_match,
-                                           min_trick, row_features_stats, sinkhorn_ladder)
     from lapgnn_tpu_torch.pipeline import WarmStartPipeline
     from lapgnn_tpu_torch.solver.jv import DEVICE_COUNTS, SolveStats
     from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
@@ -1400,22 +1393,21 @@ def phase_device_e2e(torch, seed):
         raise AssertionError("the default pipeline is not the device mode on the card")
     n = N_E2E
     costs = _e2e_costs(seed)
-    solver = {"augment_sweep": augment_sweep, "arr_auction": arr_auction,
-              "greedy_match": greedy_match}
+    solver = ("augment_sweep", "arr_auction", "greedy_match")
 
-    _zero_launches()
+    since = _launches()
     results, stats, per_instance = {}, {}, {}
     for f, C in costs.items():
-        before = {k: w.launches for k, w in solver.items()}
+        before = _launches()
         results[f] = pipe.solve(C, certify=True)
         stats[f] = pipe.last_solve_stats[0]
-        per_instance[f] = {k: w.launches - before[k] for k, w in solver.items()}
+        per_instance[f] = {k: _launches(before)[k] for k in solver}
     torch.cuda.synchronize()
-    launches = _read_launches()
+    launches = _launches(since)
 
     per = len(costs)
-    if (row_features_stats.launches < per or col_min.launches < per
-            or min_trick.launches < 2 * per or sinkhorn_ladder.launches < per
+    if (launches["row_features_stats"] < per or launches["col_min"] < per
+            or launches["min_trick"] < 2 * per or launches["sinkhorn_ladder"] < per
             or min(min(p.values()) for p in per_instance.values()) < 1):
         raise AssertionError(
             f"the device path skipped a kernel: launches {launches}, "
@@ -1620,7 +1612,7 @@ def _augment_unstaged(torch, seed):
         for how in ("kernel", "plain"):
             counts = torch.zeros(3, dtype=torch.int64, device="cuda")
             torch.cuda.synchronize()
-            before = augment_mod.augment_sweep.launches
+            since = _launches()
             t0 = time.perf_counter()
             if how == "kernel":
                 got = (_augment(C, *after, counts, layout="unstaged") if forced
@@ -1632,7 +1624,7 @@ def _augment_unstaged(torch, seed):
                          "counts": dict(zip(("aug_rounds", "sweeps", "flip_steps"),
                                             counts.tolist())),
                          "ms": (time.perf_counter() - t0) * 1e3,
-                         "launches": augment_mod.augment_sweep.launches - before}
+                         "launches": _launches(since)["augment_sweep"]}
         differ = _same_solve(torch, runs["kernel"], runs["plain"])
         if differ or runs["kernel"]["launches"] != 1:
             raise AssertionError(f"augment_unstaged n = {n} {dtype}: {differ}, "
@@ -1724,7 +1716,7 @@ def phase_device_vs_cpu(torch, pipe, seed):
         futures = {nc: pool.submit(_cpu_solve, (*nc, seed, threads, given.get(nc)))
                    for nc in order}
         report, on_card, err = {}, {}, 0.0
-        _zero_launches()
+        since = _launches()
         for n, case in cases:
             arrays = given.get((n, case)) or _vs_cpu_case(n, case, seed)
             C, u, v = (torch.from_numpy(a).cuda() for a in arrays)
@@ -1763,7 +1755,7 @@ def phase_device_vs_cpu(torch, pipe, seed):
                                      "s1_layout": _s1_layout(n, C),
                                      "counts": runs["kernels"]["counts"],
                                      "used_fallback": runs["kernels"]["used_fallback"]}
-        launches = _read_launches()
+        launches = _launches(since)
         unstaged = _augment_unstaged(torch, seed)
         for n, case in cases:
             report[f"{case}_{n}"]["card_vs_cpu_differ"] = _same_solve(
@@ -2099,14 +2091,14 @@ def phase_train(torch, seed, train_data=None):
         config["checkpointing"]["output_dir"] = tmp
         with _wrapped(progressive, "make_train_step", _counting(steps)), \
                 _wrapped(progressive, "make_eval_step", _counting(evals)):
-            _zero_launches()
+            since = _launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, history = progressive.train_progressive(config, specs, init_params=init,
                                                        log_fn=logs.append)
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
-            launches = _read_launches()
+            launches = _launches(since)
         out_dir = Path(tmp)
         for d in ("best", "last"):
             if not (out_dir / d / "params.msgpack").exists() or not (out_dir / d / "meta.json").exists():
@@ -2321,7 +2313,7 @@ def phase_eval(torch, seed, records=None):
     # each kernel's arguments and result kept where the path calls it
     seen = {k: [] for k in ("col_min", "min_trick", "row_features_stats", "greedy_total",
                             "sinkhorn_ladder")}
-    _zero_launches()
+    since = _launches()
     result, ms_per_instance = {}, {}
     with _wrapped(cuda_ops, "sinkhorn_ladder", _capture_pair(seen["sinkhorn_ladder"])), \
             _wrapped(cuda_features, "col_min", _capture(seen["col_min"], clone=True)), \
@@ -2335,7 +2327,7 @@ def phase_eval(torch, seed, records=None):
             result.update(ladder({name: pipe}, by_family))
             torch.cuda.synchronize()
             ms_per_instance[name] = (time.perf_counter() - t0) * 1e3 / n_inst
-    launches = _read_launches()
+    launches = _launches(since)
     want = {"row_features_stats": n_inst, "col_min": n_inst, "min_trick": 2 * n_inst,
             "greedy_total": 2 * (n_inst + n_sentinel), "sinkhorn_ladder": 2 * n_inst}
     if any(launches[k] < v for k, v in want.items()):
@@ -2469,7 +2461,7 @@ def phase_eval(torch, seed, records=None):
         "phase": "eval", "n": EVAL_N, "instances": n_inst, "sentinel_instances": n_sentinel,
         "dual_gnn_width": {"hidden": dual_model.hidden_dim, "layers": dual_model.num_layers,
                            "heads": dual_model.heads, "parameters": n_params},
-        "launches": launches, "launches_phase": _read_launches(),
+        "launches": launches, "launches_phase": _launches(since),
         "kernels_against_plain_on_the_ladder": against_plain,
         "overall": {name: r["overall"] for name, r in result.items()},
         "ms_per_instance_host_clock": ms_per_instance,
@@ -2535,14 +2527,14 @@ def phase_dual_train(torch, seed, train_data=None):
     with _wrapped(dual_trainer, "make_dual_train_step", _counting(steps)), \
             _wrapped(dual_trainer, "make_dual_eval_step", _counting(evals)), \
             _wrapped(loss_mod, "greedy_total", _capture(greedy_calls, clone=True)):
-        _zero_launches()
+        since = _launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         best, history = dual_trainer.train_dual_gnn(train, val, cfg, log_fn=logs.append,
                                                     init_params=init)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = _read_launches()
+        launches = _launches(since)
 
     warm = logs[0].split()
     loaded, total = (int(x) for x in warm[2].split("/"))
@@ -2918,7 +2910,7 @@ def phase_front_ends(torch, seed):
     clis, classes = {}, {}
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        _zero_launches()
+        since = _launches()
         with _wrapped(cuda_features, "col_min", _capture(seen["col_min"], clone=True)), \
                 _wrapped(dual_mod, "min_trick", _capture(seen["min_trick"], clone=True)), \
                 _wrapped(features_mod, "row_features_stats",
@@ -3013,7 +3005,7 @@ def phase_front_ends(torch, seed):
             print(f"front_ends: LAPMODSolver on sparse n = {FRONT_N} answered by the "
                   f"{lapmod.last_route} route", flush=True)
         torch.cuda.synchronize()
-        launches = _read_launches()
+        launches = _launches(since)
     drive_s = time.perf_counter() - t_phase
     want = ("col_min", "min_trick", "row_features_stats", *SOLVER_KERNELS)
     if any(launches[k] < 1 for k in want):
@@ -3219,7 +3211,7 @@ def _parallel_rank(rank, device, seed, out_dir):
     predict = make_sharded_predict(model, mesh)
     _warm_up(torch, mesh)
     _wait_for(Path(out_dir) / "go")
-    _zero_launches()
+    since = _launches()
     mesh.log.clear()
     with _kernel_calls() as calls:
         t0 = time.perf_counter()
@@ -3231,7 +3223,7 @@ def _parallel_rank(rank, device, seed, out_dir):
         u_pred, v_pred = predict(C_blk[None])
         col, mt = shmap_col_min(mesh)(C_blk), shmap_min_trick(mesh)(C_blk, u_blk)
         torch.cuda.synchronize()
-    launches = _read_launches()
+    launches = _launches(since)
     largest = max(e[1] for e in mesh.log)
     assert_no_matrix_allgather(mesh.log, PAR_N, 2)
     held = _hold_kernel_calls(torch, calls, f"parallel rank {rank}")
@@ -3289,7 +3281,7 @@ def _par_world1(torch, seed):
             u, v = _rank1_seeds(torch, C)
             C_blk = local_rows(C, mesh)
             torch.cuda.synchronize()
-            _zero_launches()
+            since = _launches()
             mesh.log.clear()
             with _kernel_calls() as calls:
                 t0 = time.perf_counter()
@@ -3301,7 +3293,7 @@ def _par_world1(torch, seed):
                 torch.cuda.synchronize()
                 solve_ms = (time.perf_counter() - t0) * 1e3
                 ring = ring_min_trick(mesh)(C_blk, u)
-            for name, count in _read_launches().items():
+            for name, count in _launches(since).items():
                 launches[name] = launches.get(name, 0) + count
             assert_no_matrix_allgather(mesh.log, PAR_N, 1)
             held.append(_hold_kernel_calls(torch, calls, f"parallel world 1, {fam}"))
@@ -3422,11 +3414,11 @@ def phase_parallel(torch, seed):
             raise AssertionError(f"the sharded path launched no {k}: {launches}")
     world2_s = time.perf_counter() - t_phase - world1_s
 
-    _zero_launches()
+    since = _launches()
     t0 = time.perf_counter()
     scaling = scaling_benchmark.main(PAR_SCALING_ARGV)
     scaling_s = time.perf_counter() - t0
-    launches_cli = _read_launches()
+    launches_cli = _launches(since)
     if launches_cli["row_features_stats"] < 1:
         raise AssertionError("the scaling CLI's roofline block launched no K3")
     dijkstra = _par_dijkstra(torch, seed)
@@ -3712,7 +3704,7 @@ def _parallel_train_rank(rank, device, seed, out_dir):
     inputs = {k: tuple(t.to(dev) for t in v) if isinstance(v, tuple) else v.to(dev)
               for k, v in inputs.items()}
     res = {"dp": {}, "dual": {}}
-    _zero_launches()
+    since = _launches()
     with _pt_kernel_calls() as calls:
         for data, model in PT_DP_MESHES:
             mesh = make_mesh(data, model, device=device)
@@ -3732,7 +3724,7 @@ def _parallel_train_rank(rank, device, seed, out_dir):
         res["predict"]["v_hint_finite"] = bool(torch.isfinite(
             make_sharded_dual_predict(model, mesh, project=False)(tile)[1]).all())
         torch.cuda.synchronize()
-    res["launches"] = _read_launches()
+    res["launches"] = _launches(since)
     res["held"] = _pt_hold(torch, calls, f"parallel_train rank {rank}")
     torch.save(res, f"{out_dir}/rank{rank}.pt")
 
@@ -3780,12 +3772,12 @@ def _pt_world1(torch, seed, inputs):
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
                             world_size=1, timeout=datetime.timedelta(seconds=120))
     try:
-        _zero_launches()
+        since = _launches()
         with _pt_kernel_calls() as calls:
             mesh = make_mesh(1, 1, device="cuda")
             dp = _pt_dp_step(torch, mesh, inputs, 2)
             dual = _pt_dual_step(torch, dual_mesh(1, 1, device="cuda"), inputs, 1)
-        launches = _read_launches()
+        launches = _launches(since)
         held = _pt_hold(torch, calls, "parallel_train world 1")
     finally:
         dist.destroy_process_group()
@@ -4151,12 +4143,10 @@ def _solver_times(torch, C, flush, reps):
     out = {}
     for name, (kern, plain, slot, itemsize) in calls.items():
         counts = torch.zeros(5, dtype=torch.int64, device=C.device)
-        wrapper = {"greedy_match": greedy_match, "arr_auction": arr_auction,
-                   "augment_sweep": augment_sweep}[name]
-        before = wrapper.launches
+        since = _launches()
         kern(counts)
         torch.cuda.synchronize()
-        launched = wrapper.launches - before
+        launched = _launches(since)[name]
         count = int(counts[slot])
         scratch = torch.zeros(5, dtype=torch.int64, device=C.device)
         rows_read = {"greedy_match": sum(free_greedy), "arr_auction": sum(free_arr),
@@ -4448,9 +4438,9 @@ def phase_dual_edge(torch, seed):
     with torch.no_grad():
         gf = feats("noisy_linear", 1, N_E2E)
     with torch.inference_mode():
-        before = kedge.dual_edge_terms.launches
+        since = _launches()
         u = model(gf.edge_feat, gf.row_feat, gf.col_feat)["u"]
-        launches = kedge.dual_edge_terms.launches - before
+        launches = _launches(since)["dual_edge_terms"]
     with torch.enable_grad():  # off the kernel; no parameter requires a gradient
         u_eager = model(gf.edge_feat, gf.row_feat, gf.col_feat)["u"]
     u_gap = float((u - u_eager).norm() / u_eager.norm())
@@ -4465,11 +4455,11 @@ def phase_dual_edge(torch, seed):
                              normalize_costs=False)
     serve = {}
     for f, C in _e2e_costs(seed + 2101).items():
-        _zero_launches()
+        since = _launches()
         got = float(pipe.solve(C)["cost"][0])
         torch.cuda.synchronize()
         opt = _scipy_opt(C.astype(np.float64))
-        serve[f] = kedge.dual_edge_terms.launches
+        serve[f] = _launches(since)["dual_edge_terms"]
         if serve[f] != model.num_layers or not abs(got - opt) <= 1e-5 * max(1.0, abs(opt)):
             raise AssertionError(f"dual_gnn_r5 serving {f} at n = {N_E2E}: {serve[f]} kernel "
                                  f"launches, cost {got!r} against SciPy's {opt!r}")

@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels (``csrc/*.cu``) with their plain PyTorch
-versions and launch counters."""
+versions.  Each wrapper counts its launches in the tracer's counter
+``launch.<wrapper name>`` (``tracing.counters()``)."""
 
 from .arr import arr_auction
 from .augment import augment_sweep
@@ -22,9 +23,4 @@ __all__ = [
     "row_features_stats",
     "sinkhorn_ladder",
     "two_min",
-    "WRAPPERS",
 ]
-
-# Every kernel wrapper; each counts its launches in ``.launches``.
-WRAPPERS = (col_min, min_trick, row_features_stats, two_min, greedy_total, augment_sweep,
-            arr_auction, greedy_match, sinkhorn_ladder, dual_edge_terms)

@@ -21,9 +21,10 @@ from typing import Dict, List
 
 import torch
 
+from ... import tracing
 from ..._build import SharedLibrary
 
-__all__ = ["KERNEL_LIBS", "check", "coop_blocks", "ptr", "stream_ptr"]
+__all__ = ["KERNEL_LIBS", "check", "coop_blocks", "launched", "ptr", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent.parent.parent / "csrc"
 
@@ -183,6 +184,13 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} failed to launch: CUDA error {rc}")
+
+
+def launched(rc: int, what: str, wrapper: str) -> None:
+    """After a wrapper's kernel launch: raise on a CUDA error, else count the
+    launch once, in the tracer's counter ``launch.<wrapper>``."""
+    check(rc, what)
+    tracing.count(f"launch.{wrapper}")
 
 
 def coop_blocks(occupancy: int, sms: int, work_blocks: int, per_sm: int = 2) -> int:

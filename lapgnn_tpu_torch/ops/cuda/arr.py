@@ -27,7 +27,7 @@ The plain version is the eager loop ``solver.seeded._jacobi_arr_eager`` with
 K4's plain version as the bid; the kernel equals it bit for bit (x, y, v and
 the rounds).  A CUDA tensor launches the kernel (or raises); only a CPU
 tensor takes the plain version.  The wrapper counts its kernel launches in
-``.launches``.
+the tracer's ``launch.arr_auction``.
 """
 
 from __future__ import annotations
@@ -306,7 +306,7 @@ def _arr(C, x, y, v, max_rounds, min_delta, counts, layout: Optional[str] = None
     if C.device.type != "cuda":
         raise ValueError(f"arr: unsupported device {C.device}")
     _check_state(C, x, y, v, counts, 1, "arr")
-    from ._lib import KERNEL_LIBS, check, ptr, sm_count, stream_ptr
+    from ._lib import KERNEL_LIBS, launched, ptr, sm_count, stream_ptr
 
     n, f64, itemsize = C.shape[0], int(C.dtype == torch.float64), C.element_size()
     sms = sm_count(C.device)
@@ -331,8 +331,7 @@ def _arr(C, x, y, v, max_rounds, min_delta, counts, layout: Optional[str] = None
         rc = launch(ptr(C), ptr(x), ptr(y), ptr(v), ptr(xo), ptr(yo), ptr(vo), ptr(work),
                     ptr(state), ptr(counts), n, max_rounds, min_delta, *extra,
                     LAYOUTS.index(layout), g.blocks, -(-n // g.blocks), stream_ptr(C.device))
-    check(rc, f"arr kernel ({layout})")
-    arr_auction.launches += 1
+    launched(rc, f"arr kernel ({layout})", "arr_auction")
     return xo, yo, vo
 
 
@@ -347,6 +346,3 @@ def arr_auction(
     if C.device.type == "cpu":
         return arr_auction_plain(C, x, y, v, max_rounds, min_delta, counts)
     return arr_auction_kernel(C, x, y, v, max_rounds, min_delta, counts)
-
-
-arr_auction.launches = 0

@@ -41,7 +41,8 @@ The plain version is the eager loop ``solver.jv._augment_all_sweep_eager``
 (every loop condition read on the host, the flips walked over Python
 lists); the kernel equals it bit for bit (x, y, v and the loop counts).  A
 CUDA tensor launches the kernel (or raises); only a CPU tensor takes the
-plain version.  The wrapper counts its kernel launches in ``.launches``.
+plain version.  The wrapper counts its kernel launches in the tracer's
+``launch.augment_sweep``.
 """
 
 from __future__ import annotations
@@ -426,7 +427,7 @@ def _augment(C, x, y, v, counts, layout: Optional[str] = None, tma: bool = True)
     if C.device.type != "cuda":
         raise ValueError(f"augment: unsupported device {C.device}")
     _check(C, x, y, v, counts)
-    from ._lib import KERNEL_LIBS, check, ptr, sm_count, stream_ptr
+    from ._lib import KERNEL_LIBS, launched, ptr, sm_count, stream_ptr
 
     n, f64, itemsize = C.shape[0], int(C.dtype == torch.float64), C.element_size()
     sms = sm_count(C.device)
@@ -448,8 +449,7 @@ def _augment(C, x, y, v, counts, layout: Optional[str] = None, tma: bool = True)
         rc = launch(ptr(C), ptr(x), ptr(y), ptr(v), ptr(work), ptr(counts), n, g.blocks, g.tile,
                     LAYOUTS.index(layout), rows, 8.0 * torch.finfo(C.dtype).eps,
                     stream_ptr(C.device))
-    check(rc, f"augment kernel ({layout})")
-    augment_sweep.launches += 1
+    launched(rc, f"augment kernel ({layout})", "augment_sweep")
     return x, y, v
 
 
@@ -480,6 +480,3 @@ def augment_sweep(
     if C.device.type == "cpu":
         return augment_sweep_plain(C, x, y, v, counts)
     return augment_sweep_kernel(C, x, y, v, counts)
-
-
-augment_sweep.launches = 0

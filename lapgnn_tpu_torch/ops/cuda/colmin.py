@@ -27,7 +27,7 @@ the column holds both -0.0 and +0.0, the kernel keeps the zero its fixed
 order meets first and ``amin`` the one its own order meets (equal values,
 possibly another sign bit).  A CUDA tensor launches the kernel (or raises);
 only a CPU tensor takes the plain version.  Each wrapper counts its kernel
-launches in ``.launches``.
+launches in the tracer's counter ``launch.<wrapper>``.
 """
 
 from __future__ import annotations
@@ -247,7 +247,7 @@ def col_min_kernel(C: torch.Tensor, u: Optional[torch.Tensor] = None, **force) -
     if C.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {C.device}")
     Cb, ub, (B, n, m) = _as_batch(C, u, what)
-    from ._lib import KERNEL_LIBS, check, ptr, stream_ptr
+    from ._lib import KERNEL_LIBS, launched, ptr, stream_ptr
 
     if B > 65535:
         raise ValueError(f"{what}: batch {B} exceeds the kernel's grid limit 65535")
@@ -267,8 +267,7 @@ def col_min_kernel(C: torch.Tensor, u: Optional[torch.Tensor] = None, **force) -
                 ptr(Cb), u_ptr, ptr(part), ptr(out), B, n, m, g.row_blocks,
                 g.rows_per_block, stream_ptr(Cb.device),
             )
-    check(rc, f"colmin kernel ({g.path})")
-    (col_min if u is None else min_trick).launches += 1
+    launched(rc, f"colmin kernel ({g.path})", "col_min" if u is None else "min_trick")
     return out if C.ndim == 3 else out[0]
 
 
@@ -293,7 +292,3 @@ def min_trick(C: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if u is None:
         raise TypeError("min_trick: u is required")
     return col_min_kernel(C, u)
-
-
-col_min.launches = 0
-min_trick.launches = 0

@@ -32,8 +32,7 @@ CPU) and the kernel moved them at most 5.9e-7 from the plain version on the
 card.  ``dual_edge_terms_plain`` is the same folded arithmetic in PyTorch.
 ``dual_edge_terms`` launches the kernel on CUDA float32 tensors and raises on
 any other input (``DualLayer.forward`` decides which inputs reach it); it
-counts its launches in ``.launches`` and the tracer's ``dual_edge_kernel``
-counter.
+counts its launches in the tracer's ``launch.dual_edge_terms``.
 """
 
 from __future__ import annotations
@@ -43,7 +42,6 @@ from typing import Tuple
 import torch
 from torch.nn import functional as F
 
-from ... import tracing
 
 __all__ = ["MAX_OUT", "RTOL", "dual_edge_terms", "dual_edge_terms_plain", "fold_edge_weights",
            "tolerance"]
@@ -114,7 +112,7 @@ def dual_edge_terms(edge_feat, w1, b1, w2, b2, wf, bf) -> torch.Tensor:
     (w1, b1), fc2 (w2, b2) and the folded (wf, bf): (B, N, M, out), by the
     kernel on the current stream; reads nothing back."""
     _check(edge_feat, w1, b1, w2, b2, wf, bf)
-    from ._lib import KERNEL_LIBS, check, ptr, sm_count, stream_ptr
+    from ._lib import KERNEL_LIBS, launched, ptr, sm_count, stream_ptr
 
     out_dim = wf.shape[-1]
     dev = edge_feat.device
@@ -128,10 +126,5 @@ def dual_edge_terms(edge_feat, w1, b1, w2, b2, wf, bf) -> torch.Tensor:
         blocks = min(-(-edges // 128), sm_count(dev))  # csrc/dual_edge.cu's kTile
         rc = lib.lapgnn_dual_edge(ptr(edge_feat), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(wf),
                                   ptr(bf), ptr(terms), edges, out_dim, blocks, stream_ptr(dev))
-    check(rc, "dual_edge_terms kernel")
-    dual_edge_terms.launches += 1
-    tracing.count("dual_edge_kernel")
+    launched(rc, "dual_edge_terms kernel", "dual_edge_terms")
     return terms
-
-
-dual_edge_terms.launches = 0

@@ -314,7 +314,7 @@ def selections_padded(C: torch.Tensor, geometry: RowFeaturesGeometry):
 def _launch(Cb: torch.Tensor, colmin: torch.Tensor, geometry: RowFeaturesGeometry) -> torch.Tensor:
     """Launch the statistics kernel on a (B, n, m) CUDA batch with its
     (B, m) column minima."""
-    from ._lib import KERNEL_LIBS, check, ptr, stream_ptr
+    from ._lib import KERNEL_LIBS, launched, ptr, stream_ptr
 
     B, n, m = Cb.shape
     lib = KERNEL_LIBS["features"].load()
@@ -325,8 +325,7 @@ def _launch(Cb: torch.Tensor, colmin: torch.Tensor, geometry: RowFeaturesGeometr
             geometry.warps_per_row, int(geometry.vector),
             stream_ptr(Cb.device),
         )
-    check(rc, "row_features_stats kernel")
-    row_features_stats.launches += 1
+    launched(rc, "row_features_stats kernel", "row_features_stats")
     return out
 
 
@@ -410,6 +409,3 @@ def row_features_stats(C: torch.Tensor) -> torch.Tensor:
     if C.device.type == "cpu":
         return row_features_stats_plain(C, col_min(C))
     return stats_kernel(C)
-
-
-row_features_stats.launches = 0

@@ -18,7 +18,7 @@ rows in the given order, each takes its cheapest still-unused column (first
 index on ties, NaN smallest, as ``argmin``), the sum accumulated in float32
 in visiting order.  The kernel equals it bit for bit.  A CUDA tensor
 launches the kernel (or raises); only a CPU tensor takes the plain version.
-The wrapper counts its kernel launches in ``.launches``.
+The wrapper counts its kernel launches in the tracer's ``launch.greedy_total``.
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ def greedy_total_kernel(
     if red.device.type != "cuda":
         raise ValueError(f"greedy_total: unsupported device {red.device}")
     _check(red, cost, order, valid)
-    from ._lib import KERNEL_LIBS, check, ptr, stream_ptr
+    from ._lib import KERNEL_LIBS, launched, ptr, stream_ptr
 
     B, n, _ = red.shape
     lib = KERNEL_LIBS["greedy"].load()
@@ -112,8 +112,7 @@ def greedy_total_kernel(
             ptr(red), ptr(cost), ptr(order), None if valid is None else ptr(valid),
             ptr(total), B, n, greedy_threads(n), stream_ptr(red.device),
         )
-    check(rc, "greedy_total kernel")
-    greedy_total.launches += 1
+    launched(rc, "greedy_total kernel", "greedy_total")
     return total
 
 
@@ -128,6 +127,3 @@ def greedy_total(
     if red.device.type == "cpu":
         return greedy_total_plain(red, cost, order, valid)
     return greedy_total_kernel(red, cost, order, valid)
-
-
-greedy_total.launches = 0

@@ -25,7 +25,7 @@ The plain version is the eager loop
 ``solver.seeded._greedy_tight_matching_eager``; the kernel equals it (x, y
 and the rounds).  A CUDA tensor launches the kernel (or raises); only a CPU
 tensor takes the plain version.  The wrapper counts its kernel launches in
-``.launches``.
+the tracer's ``launch.greedy_match``.
 """
 
 from __future__ import annotations
@@ -239,7 +239,7 @@ def greedy_match_kernel(tight: torch.Tensor, counts: torch.Tensor) -> Tuple[torc
         raise ValueError("greedy_match: tight must be contiguous")
     if counts.dtype != torch.int64 or counts.numel() < 1 or counts.device != tight.device:
         raise ValueError("greedy_match: counts must be int64 on tight's device")
-    from ._lib import KERNEL_LIBS, check, ptr, sm_count, stream_ptr
+    from ._lib import KERNEL_LIBS, launched, ptr, sm_count, stream_ptr
 
     n = tight.shape[0]
     sms = sm_count(tight.device)
@@ -256,8 +256,7 @@ def greedy_match_kernel(tight: torch.Tensor, counts: torch.Tensor) -> Tuple[torc
                            device=tight.device)
         rc = lib.lapgnn_greedy_match(ptr(tight), ptr(x), ptr(y), ptr(work), ptr(counts), n,
                                      g.blocks, -(-n // g.blocks), stream_ptr(tight.device))
-    check(rc, "greedy_match kernel")
-    greedy_match.launches += 1
+    launched(rc, "greedy_match kernel", "greedy_match")
     return x, y
 
 
@@ -268,6 +267,3 @@ def greedy_match(tight: torch.Tensor, counts: torch.Tensor) -> Tuple[torch.Tenso
     if tight.device.type == "cpu":
         return greedy_match_plain(tight, counts)
     return greedy_match_kernel(tight, counts)
-
-
-greedy_match.launches = 0

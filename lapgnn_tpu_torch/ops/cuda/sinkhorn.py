@@ -45,8 +45,8 @@ that for longer sums and the card's own ``expf``.  The
 projections are minima of the same elementwise differences as the eager
 ``amin`` s, so given the same ladder v they are bit-equal (the sign of a
 zero aside).  A CUDA float32 tensor launches the kernel (or raises); a CPU
-tensor takes the plain version.  The wrapper counts its launches in
-``.launches`` and the tracer's ``sinkhorn_kernel`` counter.
+tensor takes the plain version.  The wrapper counts its launches in the
+tracer's ``launch.sinkhorn_ladder``.
 """
 
 from __future__ import annotations
@@ -57,7 +57,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ... import tracing
 from .augment import MAX_SMEM
 from .colmin import SMS
 
@@ -316,7 +315,7 @@ def sinkhorn_ladder_kernel(
     """The kernel on CUDA float32 tensors: (u, v), each (B, n); with
     ``keep_ladder`` also the ladder's last v, before the projections."""
     _check(cost_r, cost, u0, scale, eps_rel, iters)
-    from ._lib import KERNEL_LIBS, check, ptr, sm_count, stream_ptr
+    from ._lib import KERNEL_LIBS, launched, ptr, sm_count, stream_ptr
 
     B, n = cost.shape[0], cost.shape[-1]
     dev = cost.device
@@ -338,9 +337,7 @@ def sinkhorn_ladder_kernel(
         rc = lib.lapgnn_sinkhorn(ptr(cost_r), ptr(cost), ptr(u0), ptr(scale), ptr(u), ptr(v),
                                  ptr(work), rungs, len(eps_rel), iters, B, n, g.blocks, g.rows,
                                  g.resident, vec, stream_ptr(dev))
-    check(rc, "sinkhorn_ladder kernel")
-    sinkhorn_ladder.launches += 1
-    tracing.count("sinkhorn_kernel")
+    launched(rc, "sinkhorn_ladder kernel", "sinkhorn_ladder")
     if keep_ladder:
         off = lib.lapgnn_sinkhorn_ladder_offset()
         ladder = work[off: off + 4 * B * n].view(torch.float32).view(B, n)
@@ -365,6 +362,3 @@ def sinkhorn_ladder(
     if cost.device.type == "cpu":
         return sinkhorn_ladder_plain(cost_r, cost, u0, scale, eps_rel, iters)
     return sinkhorn_ladder_kernel(cost_r, cost, u0, scale, eps_rel, iters)
-
-
-sinkhorn_ladder.launches = 0

@@ -26,7 +26,7 @@ first-index and NaN rules included.  float64 (the float64 solves of the
 device solver) takes the float compare state over doubles with 8-byte loads,
 a form the Pallas kernel, float32 only, does not have.  A CUDA tensor
 launches the kernel (or raises); only a CPU tensor takes the plain version.
-The wrapper counts its kernel launches in ``.launches``.
+The wrapper counts its kernel launches in the tracer's ``launch.two_min``.
 """
 
 from __future__ import annotations
@@ -177,7 +177,7 @@ def two_min_kernel(
     if C.device.type != "cuda":
         raise ValueError(f"two_min: unsupported device {C.device}")
     _check(C, v)
-    from ._lib import KERNEL_LIBS, check, ptr, stream_ptr
+    from ._lib import KERNEL_LIBS, launched, ptr, stream_ptr
 
     Cb = C if C.ndim == 3 else C[None]
     vb = v if v.ndim == 2 else v[None]
@@ -203,8 +203,7 @@ def two_min_kernel(
                 ptr(Cb), ptr(vb), ptr(min1), ptr(min2), ptr(arg), B, n, m,
                 int(g.vector), g.unroll, int(g.state == "floats"), stream_ptr(C.device),
             )
-    check(rc, "two_min kernel")
-    two_min.launches += 1
+    launched(rc, "two_min kernel", "two_min")
     if C.ndim == 2:
         return min1[0], min2[0], arg[0]
     return min1, min2, arg
@@ -221,6 +220,3 @@ def two_min(
     if C.device.type == "cpu":
         return two_min_plain(C, v)
     return two_min_kernel(C, v)
-
-
-two_min.launches = 0

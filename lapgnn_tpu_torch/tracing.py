@@ -17,9 +17,13 @@ or ``@spanned("certify")`` around a whole function) and records:
   * every counter's value when it opened and when it closed, so that the
     counts of one call are the difference.
 
-While a ``torch.profiler`` session records, each span also opens
-``torch.profiler.record_function("lapgnn.<name>")``, so it appears, nested,
-in the profile.
+While a ``torch.profiler`` session records, each span also opens a
+profiler range ``lapgnn.<name>`` (``torch._C._profiler._RecordFunctionFast``,
+the C form of ``torch.profiler.record_function``), so it appears, nested, in
+the profile.  The span reads its clock and opens or closes the range in one
+C step (``_adjacent``), so that no other thread (a ``solve_stream`` worker)
+takes the GIL between the two: taking it back can cost the 5 ms switch
+interval, and ``record_function`` drops it in its ``torch.ops`` calls.
 
 The tracer records while a ``torch.profiler`` session is recording (on
 every thread, though the profiler itself sees only the thread that started
@@ -45,6 +49,7 @@ from __future__ import annotations
 import collections
 import functools
 import itertools
+import operator
 import threading
 import time
 from contextlib import contextmanager
@@ -159,6 +164,12 @@ def discard(since: int) -> None:
         _spans.extend(kept)
 
 
+def _adjacent(first: Callable, second: Callable) -> tuple:
+    """``(first(), second())`` of two C callables, called from C one after
+    the other, so that no other thread takes the GIL between them."""
+    return tuple(map(operator.call, (first, second)))
+
+
 def _stack() -> List["Span"]:
     try:
         return _local.stack
@@ -199,12 +210,13 @@ class Span:
             self.request = self.id
         stack.append(self)
         if _profiling():
-            self._range = torch.profiler.record_function(self.name)
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
         # the host interval holds the profiler's range: its first entry on a
         # thread spends a millisecond after the range's own start time
-        self.start_ns = time.time_ns()
         if self._range is not None:
-            self._range.__enter__()
+            self.start_ns, _ = _adjacent(time.time_ns, self._range.__enter__)
+        else:
+            self.start_ns = time.time_ns()
         if self._device is not None:
             self._stream = torch.cuda.current_stream(self._device)
             self._events = (torch.cuda.Event(enable_timing=True),
@@ -219,8 +231,9 @@ class Span:
             self._events[1].record(self._stream)
             self._stream = None
         if self._range is not None:
-            self._range.__exit__(*exc)
-        self.end_ns = time.time_ns()
+            _, self.end_ns = _adjacent(functools.partial(self._range.__exit__, *exc), time.time_ns)
+        else:
+            self.end_ns = time.time_ns()
         self._range = None
         _stack().pop()
         if self._into is not None:

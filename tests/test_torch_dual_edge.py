@@ -15,8 +15,8 @@ The module imports no JAX, so its ``cuda`` cases run on the card:
 There the kernel is held against the plain version (edge counts that are
 no multiple of its 128-edge tile, 2 to 32 terms an edge, the sparse
 family's -1e15 channel, NaN and infinities), r5's whole forward at
-n = 2048 against the unfolded eager one, the ``dual_edge_kernel`` count of
-a serving forward and of a training step, and a forward with no host sync.
+n = 2048 against the unfolded eager one, the ``launch.dual_edge_terms`` count
+of a serving forward and of a training step, and a forward with no host sync.
 """
 
 from pathlib import Path
@@ -40,6 +40,7 @@ from lapgnn_tpu_torch.ops.features import graph_features
 
 R5 = Path(__file__).resolve().parent.parent / "artifacts" / "dual_gnn_r5"
 HIDDEN, HEADS = 256, 4  # dual_gnn_r5's widths
+LAUNCHES = "launch.dual_edge_terms"  # the tracer's count of the kernel's launches
 
 
 def _gelu(x):
@@ -127,7 +128,7 @@ def test_routing_keeps_the_eager_chain_off_the_card(case, monkeypatch):
         return real(self, src, dst, edge, *args)
 
     monkeypatch.setattr(DualLayer, "_attention", spy)
-    before = (dual_edge_terms.launches, tracing.counters().get("dual_edge_kernel", 0))
+    before = tracing.counters().get(LAUNCHES, 0)
     seed = 5 if case == "dropout" else None
     if case == "inference":
         with torch.inference_mode():
@@ -138,7 +139,7 @@ def test_routing_keeps_the_eager_chain_off_the_card(case, monkeypatch):
     else:
         with torch.no_grad():
             layer(gf.edge_feat, rows, cols, seed=seed)
-    assert (dual_edge_terms.launches, tracing.counters().get("dual_edge_kernel", 0)) == before
+    assert tracing.counters().get(LAUNCHES, 0) == before
     g = torch.Generator().manual_seed(seed) if seed is not None else None
     with torch.no_grad():
         want = _eager(layer, gf.edge_feat, g)
@@ -226,11 +227,11 @@ def test_wider_layer_keeps_the_eager_chain_on_card(cuda):
     gf = _features("uniform", 12, 1, 37, cuda)
     rows = torch.randn(1, 12, 16 * 17, device=cuda)
     cols = torch.randn(1, 12, 16 * 17, device=cuda)
-    before = dual_edge_terms.launches
+    before = tracing.counters().get(LAUNCHES, 0)
     with torch.inference_mode():
         layer(gf.edge_feat, rows, cols)
     torch.cuda.synchronize()
-    assert dual_edge_terms.launches == before
+    assert tracing.counters().get(LAUNCHES, 0) == before
 
 
 @pytest.mark.cuda
@@ -285,13 +286,13 @@ def test_r5_forward_at_2048_matches_the_eager_forward_on_card(cuda):
     for p in model.parameters():
         p.requires_grad_(False)
     gf = _features("noisy_linear", 2048, 1, 21, cuda)
-    before = dual_edge_terms.launches
+    before = tracing.counters().get(LAUNCHES, 0)
     with torch.inference_mode():
         u = model(gf.edge_feat, gf.row_feat, gf.col_feat)["u"]
-    assert dual_edge_terms.launches - before == 6
+    assert tracing.counters().get(LAUNCHES, 0) - before == 6
     with torch.enable_grad():
         u_eager = model(gf.edge_feat, gf.row_feat, gf.col_feat)["u"]
-    assert dual_edge_terms.launches - before == 6
+    assert tracing.counters().get(LAUNCHES, 0) - before == 6
     gap = float((u - u_eager).norm() / u_eager.norm())
     assert gap <= 2e-5, gap
 
@@ -299,7 +300,7 @@ def test_r5_forward_at_2048_matches_the_eager_forward_on_card(cuda):
 @pytest.mark.cuda
 def test_dual_edge_kernel_counts_on_card(cuda):
     """A serving forward (the pipeline's predict) adds 6 to
-    ``dual_edge_kernel``, one a layer; a training step (gradients, dropout)
+    ``launch.dual_edge_terms``, one a layer; a training step (gradients, dropout)
     adds 0."""
     from lapgnn_tpu_torch.pipeline import WarmStartPipeline
     from lapgnn_tpu_torch.train import build_model_from_meta
@@ -311,7 +312,7 @@ def test_dual_edge_kernel_counts_on_card(cuda):
                              device=cuda)
     C = torch.from_numpy(FAMILIES["uniform"](64, np.random.default_rng(3)).astype(np.float32))
     C = C.to(cuda)[None]
-    count = lambda: tracing.counters().get("dual_edge_kernel", 0)  # noqa: E731
+    count = lambda: tracing.counters().get(LAUNCHES, 0)  # noqa: E731
     before = count()
     pipe.predict_duals(C)
     torch.cuda.synchronize()

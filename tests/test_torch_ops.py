@@ -19,11 +19,12 @@ from lapgnn_tpu.ops import sinkhorn as jsink
 from lapgnn_tpu.ops.pallas import pallas_col_min, pallas_min_trick
 from lapgnn_tpu.ops.pallas.features import pallas_row_features_stats
 from lapgnn_tpu.train.loss import clip_cost_sentinels as j_clip
+from lapgnn_tpu_torch import tracing
 from lapgnn_tpu_torch.ops import dual as tdual
 from lapgnn_tpu_torch.ops import features as tfeat
 from lapgnn_tpu_torch.ops import rank1 as trank1
 from lapgnn_tpu_torch.ops import sinkhorn as tsink
-from lapgnn_tpu_torch.ops.cuda import WRAPPERS, col_min, min_trick, row_features_stats, two_min
+from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
 from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
 from lapgnn_tpu_torch.ops.cuda.features import (
     _from_key,
@@ -162,12 +163,17 @@ def test_row_features_stats_plain_single_column():
 
 
 def test_cpu_calls_do_not_count_launches():
-    before = [w.launches for w in WRAPPERS]
+    """A CPU tensor takes the plain versions: no ``launch.*`` counter of the
+    tracer moves."""
+    launches = lambda: {k: v for k, v in tracing.counters().items()  # noqa: E731
+                        if k.startswith("launch.")}
+    before = launches()
     C = _t(_cost("uniform", 16))
     col_min(C)
     min_trick(C, torch.zeros(16))
     row_features_stats(C)
-    assert [w.launches for w in WRAPPERS] == before
+    two_min(C, torch.zeros(16))
+    assert launches() == before
 
 
 def test_wrappers_reject_other_devices():
@@ -389,9 +395,9 @@ def test_kernels_match_plain_versions_on_card(cuda, n):
 @pytest.mark.cuda
 def test_kernel_wrappers_count_and_validate_on_card(cuda):
     C = torch.rand(64, 64, device=cuda)
-    before = col_min.launches
+    before = tracing.counters().get("launch.col_min", 0)
     col_min(C)
-    assert col_min.launches == before + 1
+    assert tracing.counters().get("launch.col_min", 0) == before + 1
     with pytest.raises(TypeError):
         col_min(C.double())
     with pytest.raises(ValueError):

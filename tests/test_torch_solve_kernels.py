@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from lapgnn_tpu_torch import tracing
 from lapgnn_tpu_torch.data.generators import FAMILIES
 from lapgnn_tpu_torch.ops.cuda import arr, augment
 from lapgnn_tpu_torch.ops.cuda._lib import coop_blocks
@@ -856,7 +857,8 @@ def test_kernels_match_plain_loops_on_card(cuda, fam, n, kind):
     Cd = _t(C).to(cuda)
     on = lambda t: t.to(cuda)  # noqa: E731
     k0, p0 = (torch.zeros(5, dtype=torch.int64, device=cuda) for _ in range(2))
-    before = (gm.greedy_match.launches, arr.arr_auction.launches, augment.augment_sweep.launches)
+    names = ("launch.greedy_match", "launch.arr_auction", "launch.augment_sweep")
+    before = [tracing.counters().get(k, 0) for k in names]
     got = gm.greedy_match(on(tight), k0[0:1])
     want = gm.greedy_match_plain(on(tight), p0[0:1])
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -869,7 +871,7 @@ def test_kernels_match_plain_loops_on_card(cuda, fam, n, kind):
     torch.cuda.synchronize()
     assert all(_same(a, b) for a, b in zip(got, want))
     assert torch.equal(k0, p0)
-    after = (gm.greedy_match.launches, arr.arr_auction.launches, augment.augment_sweep.launches)
+    after = [tracing.counters().get(k, 0) for k in names]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
 
 

@@ -135,9 +135,10 @@ def _hold_tree(spans, tree, requests, repeats=None):
 @pytest.mark.parametrize("path", ["solve", "train"])
 def test_off_records_nothing_and_opens_no_range(calls, path, monkeypatch):
     def no_range(*args, **kwargs):
-        raise AssertionError("record_function entered with the tracer off")
+        raise AssertionError("a profiler range opened with the tracer off")
 
     monkeypatch.setattr(torch.profiler, "record_function", no_range)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", no_range)
     assert not tracing.enabled()
     before = tracing.counters()["host_syncs"]
     calls[path]()
@@ -373,6 +374,85 @@ def test_span_on_a_cuda_device_records_events(cuda):
             torch.ones(1 << 20, device=cuda).sum()
     tracing.take()
     assert s.device_ms is not None and s.device_ms > 0
+
+
+def _launch_each(device):
+    """One call of each kernel wrapper on small inputs on ``device``, with
+    the tracer's launch counters it raises: its own, and K1's inside K3."""
+    from lapgnn_tpu_torch.ops import cuda as kernels
+    from lapgnn_tpu_torch.ops import sinkhorn as tsink
+    from lapgnn_tpu_torch.ops.sentinels import clip_cost_sentinels
+
+    n = 64
+    C = torch.from_numpy(_cost("uniform", n, 3))
+    u = C.amin(1)
+    v = (C - u[:, None]).amin(0)
+    tight = (C - u[:, None] - v[None, :]).abs() <= 1e-5
+    counts = torch.zeros(5, dtype=torch.int64)
+    # the plain versions make S2's and S1's states
+    x, y = kernels.greedy_match(tight, counts[0:1])
+    after_arr = kernels.arr_auction(C, x, y, v, 64, 0.0, counts[1:2])
+    on = lambda t: t.to(device).contiguous()  # noqa: E731
+    Cd, ud, vd, td, xd, yd, counts = map(on, (C, u, v, tight, x, y, counts))
+    after_arr = tuple(map(on, after_arr))
+    B1 = on(C[None])
+    red = on(B1 - ud[None, :, None])
+    order = on(torch.argsort(red.amin(-1), dim=-1, stable=True))
+    cost_r = on(clip_cost_sentinels(B1))
+    scale = on(tsink._robust_scale(cost_r))
+    edge = [torch.randn(*shape, device=device)
+            for shape in ((1, 9, 9, 10), (128, 10), (128,), (128, 128), (128,), (128, 8), (8,))]
+    return {
+        "col_min": (lambda: kernels.col_min(Cd), {"col_min"}),
+        "min_trick": (lambda: kernels.min_trick(Cd, ud), {"min_trick"}),
+        "row_features_stats": (lambda: kernels.row_features_stats(Cd),
+                               {"row_features_stats", "col_min"}),
+        "two_min": (lambda: kernels.two_min(Cd, vd), {"two_min"}),
+        "greedy_total": (lambda: kernels.greedy_total(red, B1, order), {"greedy_total"}),
+        "greedy_match": (lambda: kernels.greedy_match(td, counts[0:1]), {"greedy_match"}),
+        "arr_auction": (lambda: kernels.arr_auction(Cd, xd, yd, vd, 64, 0.0, counts[1:2]),
+                        {"arr_auction"}),
+        "augment_sweep": (lambda: kernels.augment_sweep(Cd, *after_arr, counts[2:]),
+                          {"augment_sweep"}),
+        "sinkhorn_ladder": (lambda: kernels.sinkhorn_ladder(
+            cost_r, B1, on(ud[None]), scale, list(tsink.DEFAULT_EPS_SCHEDULE),
+            tsink.DEFAULT_ITERS_PER_EPS), {"sinkhorn_ladder"}),
+        "dual_edge_terms": (lambda: kernels.dual_edge_terms(*edge), {"dual_edge_terms"}),
+    }
+
+
+def test_cpu_calls_count_no_launch():
+    """On the CPU every wrapper takes its plain version (``dual_edge_terms``
+    has none and raises) and no launch counter moves."""
+    calls = _launch_each(torch.device("cpu"))
+    before = tracing.counters()
+    for name, (call, _) in calls.items():
+        if name == "dual_edge_terms":
+            with pytest.raises(ValueError, match="unsupported device cpu"):
+                call()
+        else:
+            call()
+    after = tracing.counters()
+    assert {k: v for k, v in after.items() if k.startswith("launch.")} == {
+        k: v for k, v in before.items() if k.startswith("launch.")}
+
+
+@pytest.mark.cuda
+def test_each_launch_counts_once_on_the_card(cuda):
+    """Each of the ten kernel wrappers raises its tracer counter
+    ``launch.<wrapper>`` by exactly one a launch, and no other counter but
+    K1's inside K3; ``host_syncs`` does not move."""
+    calls = _launch_each(cuda)
+    assert len(calls) == 10
+    for name, (call, raised) in calls.items():
+        call()  # builds the kernel
+        torch.cuda.synchronize()
+        before = tracing.counters()
+        call()
+        torch.cuda.synchronize()
+        after = tracing.counters()
+        moved = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+        assert moved == {f"launch.{k}": 1 for k in raised}, name
 
 
 def _syncs_by_call(calls):

@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0]
-                          [--phases build,compare,device,times,stream,train,eval,dual_train,front_ends,parallel,parallel_train,dual_edge]
+                          [--phases build,compare,device,times,stream,train,eval,dual_train,front_ends,parallel,parallel_train,dual_edge,graph_features]
 
 ``--phases`` runs a subset (for a first look at a changed kernel,
 ``build,device`` after a change to the device solver or its kernels S1-S3,
@@ -12,7 +12,8 @@ one to the training path, ``build,eval`` after one to the evaluation path,
 after one to the solver front ends or the benchmark CLIs, ``build,parallel``
 after one to the parallel package's serving, ``build,parallel_train`` after
 one to its training, ``build,dual_edge`` after one to the DualGNN edge
-kernel) and then prints no ``ok`` line; with no arguments every phase runs.
+kernel, ``build,graph_features`` after one to DualGNN's graph-feature
+kernels) and then prints no ``ok`` line; with no arguments every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -244,6 +245,19 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      and the training cell's (4, 512), L2 flushed, queued behind the spin
      kernel, beside its bound (``_dual_edge_bound_ms``), the plain version
      and the unfolded eager chain it replaces.
+ 16. Graph features: DualGNN's graph-feature kernels (``ops/cuda/
+     graph_features.py``, ``csrc/graph_features.cu``) against
+     ``graph_features_plain`` on the same card, on the uniform,
+     noisy_linear, sparse and tie families, on mixed -0.0 / +0.0 and on a
+     row holding NaNs, at (B, n, m) from (1, 1, 1) to (1, 2048, 2048), by
+     the wrapper's ``check_against_plain``: every exact channel bit for bit
+     (a zero of either sign equal, NaN for NaN), mean, std and entropy
+     within its ``ULPS``, their largest ulps reported.  Their launches and the host syncs of cell D's call
+     (r5's serving ``solve(C)`` at n = 2048) and of cell C's step (r5's
+     train step at (4, 512)): two launches each.  Then their times at (1,
+     2048) and (4, 512), L2 flushed, queued behind the spin kernel, beside
+     the bound (``_graph_features_bound_ms``: C read once; with the sorts'
+     compare-exchanges and the design's own traffic) and the plain version.
 
 Output: a JSON line per phase, then the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -339,6 +353,12 @@ KERNELS = {
         "route": "cuda",
         "source": "lapgnn_tpu_torch/csrc/dual_edge.cu",
         "replaces": "lapgnn_tpu/models/dual_gnn.py:107",
+    },
+    # no Pallas kernel: DualGNN's graph features, jnp sorts XLA compiles
+    "graph_features": {
+        "route": "cuda",
+        "source": "lapgnn_tpu_torch/csrc/graph_features.cu",
+        "replaces": "lapgnn_tpu/ops/features.py:graph_features",
     },
 }
 SOLVER_KERNELS = ("augment_sweep", "arr_auction", "greedy_match")
@@ -4487,6 +4507,128 @@ def phase_dual_edge(torch, seed):
     return res
 
 
+GRAPH_FEATURES_KINDS = ("uniform", "noisy_linear", "sparse", "tie", "signed_zeros", "nan_row")
+GRAPH_FEATURES_SHAPES = ((1, 1, 1), (1, 2, 2), (1, 17, 33), (2, 33, 17), (4, 512, 512),
+                         (1, 2048, 2048))  # (B, n, m)
+GRAPH_FEATURES_TIMED = ((1, 2048), (4, 512))  # (B, n): cell D's call, cell C's step
+
+
+def _graph_features_bound_ms(B: int, n: int, m: int):
+    """Least time of one ``graph_features`` call on a (B, n, m) float32
+    cost: C read once and the edge tensor (10 floats an entry) and the node
+    features (14 a row and a column) written once, over the HBM rate; the
+    float32 work, a few operations an entry, is far below it.  Returns
+    (bound, what bounds it, the sorts' compare-exchanges, the design's
+    traffic in ms at the same rate): a bitonic network over each row padded
+    to the next power of two L, and over each column, L/2·log2 L·(log2 L +
+    1)/2 a line, integer work the rate table does not cover; the design
+    reads C in both passes, writes the column ranks and reads them back, and
+    the columns' min, tie and entropy (16 B a column) likewise."""
+    def exchanges(length):
+        L = 1 << (length - 1).bit_length()
+        lg = L.bit_length() - 1
+        return L // 2 * lg * (lg + 1) // 2
+
+    nodes = B * (n + m) * 14 * 4
+    nbytes = B * n * m * (4 + 10 * 4) + nodes
+    design = B * n * m * (2 * 4 + 2 * 4 + 10 * 4) + nodes + 2 * B * m * 16
+    return (nbytes / HBM_BYTES_PER_S * 1e3, "bytes",
+            B * (n * exchanges(m) + m * exchanges(n)), design / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_graph_features(torch, seed):
+    """DualGNN's graph-feature kernels against the plain version, their
+    launches and host syncs in cell D's call and cell C's step, then their
+    times (see the module's phase 16)."""
+    import numpy as np
+
+    from lapgnn_tpu_torch import tracing
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+    from lapgnn_tpu_torch.ops.cuda.graph_features import check_against_plain
+    from lapgnn_tpu_torch.ops.features import graph_features, graph_features_plain
+    from lapgnn_tpu_torch.pipeline import WarmStartPipeline
+    from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint, params_from_flax
+    from lapgnn_tpu_torch.train.dual_trainer import make_dual_train_step
+    from lapgnn_tpu_torch.train.schedule import make_optimizer
+
+    rng = np.random.default_rng(seed + 2300)
+
+    def cost(kind, B, n, m):
+        if kind == "signed_zeros":
+            vals = np.array([-0.0, 0.0, 1.0, -1.0, 0.5], dtype=np.float32)
+            C = rng.choice(vals, size=(B, n, m))
+        elif kind == "nan_row":  # a NaN in every third entry of one row
+            C = rng.uniform(0.0, 1.0, size=(B, n, m))
+            C[:, n // 2, ::3] = np.nan
+        else:
+            C = np.stack([FAMILIES[kind](max(n, m), rng)[:n, :m] for _ in range(B)])
+        return torch.from_numpy(C.astype(np.float32)).cuda()
+
+    ulps = {}
+    with torch.inference_mode():
+        for kind in GRAPH_FEATURES_KINDS:
+            for B, n, m in GRAPH_FEATURES_SHAPES:
+                C = cost(kind, B, n, m)
+                try:
+                    ulps[f"{kind}_{B}x{n}x{m}"] = check_against_plain(
+                        C, graph_features(C), graph_features_plain(C))
+                except AssertionError as e:
+                    raise AssertionError(f"{e} ({kind} ({B}, {n}, {m}))") from None
+    worst = {k: max(u[k] for u in ulps.values()) for k in next(iter(ulps.values()))}
+
+    def counted(fn):
+        fn()
+        torch.cuda.synchronize()
+        before = tracing.counters()
+        fn()
+        torch.cuda.synchronize()
+        after = tracing.counters()
+        return {"launches": after.get("launch.graph_features", 0)
+                - before.get("launch.graph_features", 0),
+                "host_syncs": after["host_syncs"] - before["host_syncs"]}
+
+    # cell D's call (the serving pipeline with r5 at n = 2048) and cell C's
+    # step (r5's train step at (4, 512)): two launches each
+    params, meta, _ = load_checkpoint(DUAL_CHECKPOINT)
+    pipe = WarmStartPipeline(build_model_from_meta(meta), params, mode="device",
+                             normalize_costs=False)
+    C = _e2e_costs(seed + 2301)["uniform"]
+    d_call = counted(lambda: pipe.solve(C))
+    del pipe
+    model = build_model_from_meta(meta)
+    model.load_state_dict(params_from_flax(params))
+    model.cuda()
+    step = make_dual_train_step(model, make_optimizer(list(model.parameters()), 1e-3))
+    cost4, u4 = cost("uniform", 4, 512, 512), torch.zeros(4, 512, device="cuda")
+    gen = torch.Generator().manual_seed(seed)  # as the cell's: a card generator's draws sync
+    c_step = counted(lambda: step(cost4, u4, gen))
+    del model, step, cost4
+    if d_call["launches"] != 2 or c_step["launches"] != 2:
+        raise AssertionError(f"graph_features launches: D call {d_call}, C step {c_step}")
+
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    times = {}
+    with torch.inference_mode():
+        for B, n in GRAPH_FEATURES_TIMED:
+            x = cost("uniform", B, n, n)
+            bound, by, exchanges, design_ms = _graph_features_bound_ms(B, n, n)
+            ms = _time_ms(torch, lambda: graph_features(x), 20, flush)
+            device_us, kernels = _device_launch_profile(torch, lambda: graph_features(x))
+            times[f"{B}x{n}"] = {
+                "ms": ms,
+                "plain_ms": _time_ms(torch, lambda: graph_features_plain(x), 5, flush),
+                "library_ms": None, "bound_ms": bound, "bound_by": by,
+                "bound_share_pct": 100.0 * bound / ms, "design_traffic_ms": design_ms,
+                "sort_compare_exchanges": exchanges,
+                "device_us_l2_resident": device_us, "kernels_per_call": kernels,
+            }
+            del x
+    res = {"max_ulps": worst, "ulps": ulps, "launches_d_call": d_call,
+           "launches_c_step": c_step, "times": times}
+    _emit({"phase": "graph_features", **res})
+    return res
+
+
 def phase_times(torch, seed):
     from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
@@ -4652,7 +4794,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
                     help="comma-separated subset of build,compare,device,times,stream,train,"
-                         "eval,dual_train,front_ends,parallel,parallel_train,dual_edge "
+                         "eval,dual_train,front_ends,parallel,parallel_train,dual_edge,"
+                         "graph_features "
                          "(no ok line)")
     args = ap.parse_args()
 
@@ -4686,7 +4829,8 @@ def main() -> int:
                       "front_ends": lambda: phase_front_ends(torch, args.seed),
                       "parallel": lambda: phase_parallel(torch, args.seed),
                       "parallel_train": lambda: phase_parallel_train(torch, args.seed),
-                      "dual_edge": lambda: phase_dual_edge(torch, args.seed)}
+                      "dual_edge": lambda: phase_dual_edge(torch, args.seed),
+                      "graph_features": lambda: phase_graph_features(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
@@ -4717,6 +4861,7 @@ def main() -> int:
         par_train = phase_parallel_train(torch, args.seed)
         times = phase_times(torch, args.seed)
         dual_edge = phase_dual_edge(torch, args.seed)
+        graph_feats = phase_graph_features(torch, args.seed)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4768,6 +4913,23 @@ def main() -> int:
                             "n": N_E2E, **t[f"1x{N_E2E}"], "at_4x512": t["4x512"],
                             "max_rel_err": dual_edge["max_rel_err"],
                             "u_gap_2048": dual_edge["u_gap_2048"], "card": card})
+            continue
+        if kname == "graph_features":
+            # DualGNN's graph features: launches in cell D's call and cell C's
+            # step and on every other path, the largest ulps of the summed
+            # channels against the plain version, times at both cells' shapes
+            t = graph_feats["times"]
+            d_call, c_step = graph_feats["launches_d_call"], graph_feats["launches_c_step"]
+            kernels.append({"name": kname, **info, "launches": d_call["launches"],
+                            "host_syncs_d_call": d_call["host_syncs"],
+                            "launches_c_step": c_step["launches"],
+                            "host_syncs_c_step": c_step["host_syncs"],
+                            "launches_default_pipeline": launches[kname],
+                            **{f"launches_{ph}": res["launches"].get(kname, 0) for ph, res in
+                               (("eval", evaluated), ("dual_train", dual), ("front_ends", front),
+                                ("parallel", par), ("parallel_train", par_train))},
+                            "n": N_E2E, **t[f"1x{N_E2E}"], "at_4x512": t["4x512"],
+                            "max_ulps": graph_feats["max_ulps"], "card": card})
             continue
         if kname == "greedy_total":
             # the training path's kernel: launches from the train phase, times

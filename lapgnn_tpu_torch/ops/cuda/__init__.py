@@ -7,6 +7,7 @@ from .augment import augment_sweep
 from .colmin import col_min, min_trick
 from .dual_edge import dual_edge_terms
 from .features import row_features_stats
+from .graph_features import graph_features
 from .greedy import greedy_total
 from .greedy_match import greedy_match
 from .sinkhorn import sinkhorn_ladder
@@ -17,6 +18,7 @@ __all__ = [
     "augment_sweep",
     "col_min",
     "dual_edge_terms",
+    "graph_features",
     "greedy_match",
     "greedy_total",
     "min_trick",

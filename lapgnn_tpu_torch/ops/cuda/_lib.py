@@ -5,7 +5,9 @@ Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 ``ctypes``.  No ``--use_fast_math``: the feature kernel's entropy channel
 (``expf``/``logf``) is held to 2e-5 relative.  The solver's persistent
 kernels (S1-S3) also build with ``--fmad=false``: their thresholds round
-twice, as the plain versions' do.  Nothing here runs at import;
+twice, as the plain versions' do; so do DualGNN's graph features, whose
+scaled cost and order statistics are held to the plain version bit for
+bit.  Nothing here runs at import;
 the build runs at a wrapper's first CUDA call, or when a caller
 (``chip_smoke.py``) loads every ``SharedLibrary`` at once from threads.
 """
@@ -140,6 +142,15 @@ def _bind_dual_edge(lib: ctypes.CDLL) -> None:
     lib.lapgnn_dual_edge.argtypes = [*[_VP] * 8, _LL, _I, _I, _VP]
 
 
+def _bind_graph_features(lib: ctypes.CDLL) -> None:
+    lib.lapgnn_graph_features_cols.restype = _I
+    lib.lapgnn_graph_features_cols.argtypes = [*[_VP] * 4, _I, _I, _I, _VP]
+    lib.lapgnn_graph_features_rows.restype = _I
+    lib.lapgnn_graph_features_rows.argtypes = [*[_VP] * 5, _I, _I, _I, _VP]
+    lib.lapgnn_graph_features_max_len.restype = _I
+    lib.lapgnn_graph_features_max_len.argtypes = [_I]
+
+
 _TWOMIN_H = CSRC / "twomin.cuh"
 _BARRIER_H = CSRC / "grid_barrier.cuh"
 _ROUNDS_H = CSRC / "free_rows.cuh"
@@ -170,6 +181,9 @@ KERNEL_LIBS: Dict[str, SharedLibrary] = {
         CSRC / "sinkhorn.cu", "kernels", _nvcc_command, _bind_sinkhorn, deps=[_BARRIER_H]
     ),
     "dual_edge": SharedLibrary(CSRC / "dual_edge.cu", "kernels", _nvcc_command, _bind_dual_edge),
+    "graph_features": SharedLibrary(
+        CSRC / "graph_features.cu", "kernels", _SOLVER_FLAGS, _bind_graph_features
+    ),
 }
 
 

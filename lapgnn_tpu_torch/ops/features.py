@@ -8,8 +8,11 @@ second-best gap, competition, k=10-smallest mean/std, difficulty, near-best
 density, is-col-best fraction, then 8-D positional encodings.
 
 DualGNN's dense bipartite features, ``graph_features``: 14-D node features
-for rows and columns and a 10-channel (n, n) edge tensor.  They are
-sort-based, as in the JAX package, which has no Pallas kernel for them.
+for rows and columns and a 10-channel (n, n) edge tensor.  The router
+``graph_features`` sends a whole CUDA matrix to two hand-written kernels
+(``ops/cuda/graph_features.py``); every other call takes the sort-based
+``graph_features_plain``, as in the JAX package, which has no Pallas kernel
+for them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 
 from .. import tracing
 from .cuda.features import row_features_max_m, row_features_stats
+from .cuda.graph_features import graph_features as _graph_features_kernel
+from .cuda.graph_features import MAX_BATCH, graph_features_max_len
 
 __all__ = [
     "POS_FREQS",
@@ -34,6 +39,7 @@ __all__ = [
     "row_features",
     "fast_row_features",
     "graph_features",
+    "graph_features_plain",
     "GraphFeatures",
 ]
 
@@ -242,7 +248,41 @@ def _axis_stats(C: torch.Tensor, dim: int):
     return mn, mx, mean, std, med, mad, ent
 
 
+def _on_card(C: torch.Tensor) -> bool:
+    return C.device.type == "cuda"
+
+
 def graph_features(
+    C: torch.Tensor,
+    include_reduced_cost: bool = False,
+    u: Optional[torch.Tensor] = None,
+    constrain_rows: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    constrain_cols: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    offsets: Tuple[int, int] = (0, 0),
+) -> GraphFeatures:
+    """Dense bipartite graph features for DualGNN (``graph_features_plain``
+    says what they are), routed by what the call shows.  The kernels
+    (``ops.cuda.graph_features``: a column pass and a row pass, no host
+    copy) take a CUDA matrix that is the whole matrix (no hooks, offsets
+    (0, 0)), with no reduced-cost channel to fill (``include_reduced_cost``
+    off or ``u`` None) and rows and columns no longer than the kernels'
+    shared memory holds (``graph_features_max_len``), and that needs no
+    gradient (the kernels' outputs carry none).  Every other call, the CPU,
+    ``parallel.dual``'s tiles, the reduced-cost channel, longer lines and a
+    C that requires grad with grad mode on, takes the sort-based
+    ``graph_features_plain``.  An admitted call whose launch fails raises."""
+    if (_on_card(C) and not (C.requires_grad and torch.is_grad_enabled())
+            and constrain_rows is None and constrain_cols is None
+            and tuple(offsets) == (0, 0) and not (include_reduced_cost and u is not None)
+            and C.ndim in (2, 3) and C.numel() > 0
+            and (C.ndim == 2 or C.shape[0] <= MAX_BATCH)
+            and max(C.shape[-2:]) <= graph_features_max_len(C.device)):
+        return GraphFeatures(*_graph_features_kernel(C.to(torch.float32).contiguous()))
+    return graph_features_plain(C, include_reduced_cost, u, constrain_rows, constrain_cols,
+                                offsets)
+
+
+def graph_features_plain(
     C: torch.Tensor,
     include_reduced_cost: bool = False,
     u: Optional[torch.Tensor] = None,

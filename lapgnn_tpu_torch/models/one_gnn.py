@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from .. import tracing
 from ..ops.dual import center_gauge
 
 __all__ = ["OneGNN", "ResidualBlock", "dropout"]
@@ -227,28 +228,30 @@ class OneGNN(nn.Module):
     ) -> torch.Tensor:
         """Top-k smallest reduced-cost aggregation: softmax of the negated
         k smallest entries of (C - u_pre) weights an edge-MLP embedding of
-        those values.  A masked row's reduced costs are +inf, its message 0."""
+        those values.  A masked row's reduced costs are +inf, its message 0.
+        The tracer's span ``lapgnn.one.refine``."""
         k = min(self.topk, cost.shape[-1])
         if k <= 0 or h.shape[-2] == 0:
             return torch.zeros_like(h)
-        reduced = cost - u_pre[..., :, None]
-        if mask is not None:
-            reduced = torch.where(mask[..., :, None], reduced, torch.inf)
-        # Only the values of the top k are used, never their indices, so the
-        # order in which ties come out (lax.top_k's versus torch.topk's) does
-        # not change the result.
-        if self.topk_impl == "iter":
-            values = _topk_smallest_iter(reduced, k)  # (B, n, k) ascending
-            neg_vals = -values
-        else:
-            neg_vals = torch.topk(-reduced, k, dim=-1).values  # (B, n, k)
-            values = -neg_vals
-        valid = torch.isfinite(values)
-        scores = torch.where(valid, neg_vals, -torch.inf)
-        weights = torch.where(valid, torch.softmax(scores, dim=-1), 0.0)
-        edge_in = torch.where(valid, values, 0.0)[..., None]  # (B, n, k, 1)
-        e = self.edge_mlp(edge_in)  # (B, n, k, H)
-        message = (weights[..., None] * e).sum(-2)
-        if mask is not None:
-            message = message * mask[..., :, None]
-        return self.message_norm(dropout(message, self.dropout, generator))
+        with tracing.span("one.refine", cost.device):
+            reduced = cost - u_pre[..., :, None]
+            if mask is not None:
+                reduced = torch.where(mask[..., :, None], reduced, torch.inf)
+            # Only the values of the top k are used, never their indices, so the
+            # order in which ties come out (lax.top_k's versus torch.topk's) does
+            # not change the result.
+            if self.topk_impl == "iter":
+                values = _topk_smallest_iter(reduced, k)  # (B, n, k) ascending
+                neg_vals = -values
+            else:
+                neg_vals = torch.topk(-reduced, k, dim=-1).values  # (B, n, k)
+                values = -neg_vals
+            valid = torch.isfinite(values)
+            scores = torch.where(valid, neg_vals, -torch.inf)
+            weights = torch.where(valid, torch.softmax(scores, dim=-1), 0.0)
+            edge_in = torch.where(valid, values, 0.0)[..., None]  # (B, n, k, 1)
+            e = self.edge_mlp(edge_in)  # (B, n, k, H)
+            message = (weights[..., None] * e).sum(-2)
+            if mask is not None:
+                message = message * mask[..., :, None]
+            return self.message_norm(dropout(message, self.dropout, generator))

@@ -13,7 +13,11 @@ Port of ``lapgnn_tpu/train/progressive.py`` (``BATCH_SIZE_RULES`` :37,
   * ``best/`` and ``last/`` checkpoints carrying the whole config, ``last/``
     with the optimizer state; an optional warm start from a parameter tree.
 Entry point: ``train_progressive(config, specs, init_params=None,
-log_fn=print, device=None)``, on the GPU unless ``device="cpu"``.
+log_fn=print, device=None)``, on the GPU unless ``device="cpu"``.  Each
+batch of the curriculum is one call of ``BatchStepper`` (the tracer's span
+``lapgnn.train.call``): the fetch (a gather from the device cache, or the
+stack and upload; ``lapgnn.train.batch``), the train step and the readback
+rule.  Its copies go through ``tracing``, so ``host_syncs`` counts them.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from .checkpoint import merge_params, save_checkpoint
 from .schedule import make_optimizer, warmup_cosine
@@ -40,6 +45,7 @@ from .trainer import (
 
 __all__ = [
     "BATCH_SIZE_RULES",
+    "BatchStepper",
     "DEVICE_CACHE_MIN_N",
     "DatasetSpec",
     "RoundRobinSampler",
@@ -148,6 +154,54 @@ def _stack_f32(instances, key: str) -> np.ndarray:
     return np.stack([np.asarray(x[key], np.float32) for x in instances])
 
 
+class BatchStepper:
+    """One optimizer step of the curriculum on one batch.
+
+    ``stepper(spec, idx, generator)`` fetches the batch of ``spec``'s
+    instances ``idx``, runs ``train_step`` on it and returns its loss: a
+    float read back to the host when ``spec.size >= SYNC_MIN_N`` (which
+    bounds the batches in flight), else the loss as a device tensor (small
+    sizes keep queueing).  Under ``cache_mode`` "bf16" or "f32" the
+    instances of every spec of at least ``DEVICE_CACHE_MIN_N`` are uploaded
+    once here (``caches``: ``id(spec)`` -> (costs, targets)) and each batch
+    is gathered on the device; bf16 halves the bytes, its costs rounded to
+    bf16 and upcast to float32 for the step (a training-time perturbation
+    only: the targets stay float32).  Other specs stack each batch on the
+    host and upload it."""
+
+    def __init__(self, train_step, device, specs: Sequence[DatasetSpec] = (),
+                 cache_mode: str = "off"):
+        self.train_step = train_step
+        self.device = torch.device(device)
+        self.caches: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        if cache_mode not in ("off", "bf16", "f32"):
+            raise ValueError(f"training.device_cache must be off|bf16|f32, got {cache_mode!r}")
+        if cache_mode == "off":
+            return
+        cdt = torch.bfloat16 if cache_mode == "bf16" else torch.float32
+        for s in specs:
+            if s.size >= DEVICE_CACHE_MIN_N:
+                cost = torch.from_numpy(_stack_f32(s.instances, "cost"))
+                u = torch.from_numpy(_stack_f32(s.instances, "u"))
+                self.caches[id(s)] = (tracing.to_device(cost, self.device).to(cdt),
+                                      tracing.to_device(u, self.device))
+
+    @tracing.spanned("train.call", lambda self, *args, **kwargs: self.device)
+    def __call__(self, spec: DatasetSpec, idx: np.ndarray, generator=None):
+        with tracing.span("train.batch", self.device):
+            if id(spec) in self.caches:
+                costs, targets = self.caches[id(spec)]
+                ib = tracing.to_device(torch.from_numpy(np.asarray(idx, np.int64)), self.device)
+                cost_d = costs.index_select(0, ib).to(torch.float32)
+                u_d = targets.index_select(0, ib)
+            else:
+                cost, u = RoundRobinSampler.materialize(spec, idx)
+                cost_d = tracing.to_device(torch.from_numpy(cost), self.device)
+                u_d = tracing.to_device(torch.from_numpy(u), self.device)
+        loss = self.train_step(cost_d, u_d, generator)["loss"]
+        return tracing.item(loss) if spec.size >= SYNC_MIN_N else loss
+
+
 def train_progressive(
     config: Dict,
     specs: Sequence[DatasetSpec],
@@ -187,8 +241,6 @@ def train_progressive(
     min_epochs = int(tcfg.get("min_epochs", 10))
     patience = int(tcfg.get("patience", 6))
     cache_mode = str(tcfg.get("device_cache", "off")).lower()
-    if cache_mode not in ("off", "bf16", "f32"):
-        raise ValueError(f"training.device_cache must be off|bf16|f32, got {cache_mode!r}")
 
     sampler = RoundRobinSampler(
         specs, batches_per_size=int(scfg.get("batches_per_size", 6)), seed=seed
@@ -221,31 +273,24 @@ def train_progressive(
     eval_step = make_eval_step(model, use_cost, normalize_costs=normalize_costs)
     dropout_gen = torch.Generator(device=dev).manual_seed(seed)
 
-    # Device-resident datasets (training.device_cache: bf16 | f32): each
-    # instance is uploaded once and every batch gathered on the device.  bf16
-    # halves the bytes; its costs are rounded to bf16 and upcast to float32
-    # for the step (a training-time perturbation only: targets and
-    # validation stay float32).
-    caches: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+    # Device-resident datasets (training.device_cache: bf16 | f32): the
+    # stepper uploads each training instance once; validation stays float32.
+    stepper = BatchStepper(train_step, dev, specs, cache_mode)
     val_caches: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-    if cache_mode != "off":
-        cdt = torch.bfloat16 if cache_mode == "bf16" else torch.float32
-        for s in specs:
-            if s.size < DEVICE_CACHE_MIN_N:
-                continue
-            Cc = torch.from_numpy(_stack_f32(s.instances, "cost")).to(dev).to(cdt)
-            Uc = torch.from_numpy(_stack_f32(s.instances, "u")).to(dev)
-            caches[id(s)] = (Cc, Uc)
-            if s.val_instances:
-                vals = list(s.val_instances)[:VAL_CAP]
-                val_caches[id(s)] = (
-                    torch.from_numpy(_stack_f32(vals, "cost")).to(dev),
-                    torch.from_numpy(_stack_f32(vals, "u")).to(dev),
-                )
-            log_fn(
-                f"device-cached {s.name}: train {tuple(Cc.shape)} as {cache_mode}"
-                + (", val f32" if id(s) in val_caches else "")
+    for s in specs:
+        if id(s) not in stepper.caches:
+            continue
+        if s.val_instances:
+            vals = list(s.val_instances)[:VAL_CAP]
+            val_caches[id(s)] = (
+                tracing.to_device(torch.from_numpy(_stack_f32(vals, "cost")), dev),
+                tracing.to_device(torch.from_numpy(_stack_f32(vals, "u")), dev),
             )
+        train_shape = tuple(stepper.caches[id(s)][0].shape)
+        log_fn(
+            f"device-cached {s.name}: train {train_shape} as {cache_mode}"
+            + (", val f32" if id(s) in val_caches else "")
+        )
 
     out_dir = Path(ccfg.get("output_dir", "artifacts/progressive"))
     meta_base = {
@@ -272,21 +317,9 @@ def train_progressive(
         sampler.set_epoch(epoch)
         losses = []
         for spec, idx in sampler.iter_indices():
-            if id(spec) in caches:
-                Cc, Uc = caches[id(spec)]
-                ib = torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
-                cost_d = Cc.index_select(0, ib).to(torch.float32)
-                u_d = Uc.index_select(0, ib)
-            else:
-                cost, u = sampler.materialize(spec, idx)
-                cost_d, u_d = torch.from_numpy(cost).to(dev), torch.from_numpy(u).to(dev)
-            m = train_step(cost_d, u_d, dropout_gen)
-            # Large sizes read the loss back each step, which bounds the
-            # batches in flight; small ones keep queueing.
-            losses.append(m["loss"].item() if spec.size >= SYNC_MIN_N else m["loss"])
-        history["train_loss"].append(
-            float(np.mean([float(l) for l in losses])) if losses else 0.0
-        )
+            losses.append(stepper(spec, idx, dropout_gen))
+        losses = [tracing.item(l) if isinstance(l, torch.Tensor) else l for l in losses]
+        history["train_loss"].append(float(np.mean(losses)) if losses else 0.0)
 
         split_medians = []
         for spec in specs:
@@ -302,9 +335,9 @@ def train_progressive(
                     cost_d, u_d = Vc[s:e], Vu[s:e]
                 else:
                     chunk = vals[s:e]
-                    cost_d = torch.from_numpy(_stack_f32(chunk, "cost")).to(dev)
-                    u_d = torch.from_numpy(_stack_f32(chunk, "u")).to(dev)
-                gaps.extend(eval_step(cost_d, u_d)["primal_gap"].tolist())
+                    cost_d = tracing.to_device(torch.from_numpy(_stack_f32(chunk, "cost")), dev)
+                    u_d = tracing.to_device(torch.from_numpy(_stack_f32(chunk, "u")), dev)
+                gaps.extend(tracing.to_host(eval_step(cost_d, u_d)["primal_gap"]).tolist())
             if gaps:
                 split_medians.append(float(np.median(gaps)))
 

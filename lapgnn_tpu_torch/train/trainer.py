@@ -26,6 +26,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..models import OneGNN
 from ..ops.dual import robust_normalize
@@ -196,14 +197,18 @@ def load_params(model: OneGNN, tree) -> None:
 def _forward_loss(
     model, cost, u_target, use_cost, normalize_gap, include_primal, normalize_costs, generator
 ):
+    dev = cost.device
     if normalize_costs:
-        cost, u_target = _normalize_instance(cost, u_target)
-    with torch.no_grad():
+        with tracing.span("train.normalize", dev):
+            cost, u_target = _normalize_instance(cost, u_target)
+    with tracing.span("train.features", dev), torch.no_grad():
         feats = row_features(cost)
-    preds = model(feats, cost=cost if use_cost else None, generator=generator)
-    return one_gnn_loss(
-        cost, u_target, preds, normalize_gap=normalize_gap, include_primal=include_primal
-    )
+    with tracing.span("train.forward", dev):
+        preds = model(feats, cost=cost if use_cost else None, generator=generator)
+    with tracing.span("train.loss", dev):
+        return one_gnn_loss(
+            cost, u_target, preds, normalize_gap=normalize_gap, include_primal=include_primal
+        )
 
 
 def loss_and_grads(
@@ -223,7 +228,8 @@ def loss_and_grads(
     loss, metrics = _forward_loss(
         model, cost, u_target, use_cost, normalize_gap, include_primal, normalize_costs, generator
     )
-    grads = torch.autograd.grad(loss, list(params), allow_unused=True, materialize_grads=True)
+    with tracing.span("train.backward", cost.device):
+        grads = torch.autograd.grad(loss, list(params), allow_unused=True, materialize_grads=True)
     return loss, metrics, grads
 
 
@@ -236,14 +242,19 @@ def make_train_step(
     normalize_costs: bool = False,
 ):
     """``step(cost, u_target, generator) -> metrics``: one optimizer update
-    of ``optimizer.params`` in place.  The metrics stay on the device."""
+    of ``optimizer.params`` in place.  The metrics stay on the device.  A
+    step is the tracer's root span ``lapgnn.train.step``, with
+    ``train.normalize`` (under ``normalize_costs``), ``.features``,
+    ``.forward``, ``.loss``, ``.backward`` and ``.optimizer`` inside."""
 
+    @tracing.spanned("train.step", lambda cost, *args, **kwargs: cost.device)
     def step(cost: torch.Tensor, u_target: torch.Tensor, generator=None) -> Dict[str, torch.Tensor]:
         loss, metrics, grads = loss_and_grads(
             model, optimizer.params, cost, u_target, use_cost,
             normalize_gap, include_primal, normalize_costs, generator,
         )
-        optimizer.step(grads)
+        with tracing.span("train.optimizer", cost.device):
+            optimizer.step(grads)
         return {
             "loss": loss.detach(),
             "primal_gap_mean": metrics["primal_gap"].detach().mean(),

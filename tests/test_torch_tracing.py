@@ -20,7 +20,9 @@ from lapgnn_tpu_torch.solver.jv import SolveStats
 from lapgnn_tpu_torch.solver.seeded import lapjv_seeded_single
 from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint
 from lapgnn_tpu_torch.train.dual_trainer import build_dual_gnn, make_dual_train_step
+from lapgnn_tpu_torch.train import progressive
 from lapgnn_tpu_torch.train.schedule import make_optimizer
+from lapgnn_tpu_torch.train.trainer import build_one_gnn, make_train_step, trainable_parameters
 from lapgnn_tpu_torch import tracing
 from lapgnn_tpu_torch.utils.profiling import trace
 
@@ -32,7 +34,8 @@ SEEDED = {"lapgnn.seeded": "lapgnn.e2e",
           **{f"lapgnn.seeded.{stage}": "lapgnn.seeded" for stage in STAGES}}
 E2E = {"lapgnn.decode": "lapgnn.e2e", "lapgnn.predict": "lapgnn.e2e",
        "lapgnn.predict.features": "lapgnn.predict", "lapgnn.predict.model": "lapgnn.predict",
-       "lapgnn.predict.seed": "lapgnn.predict", **SEEDED}
+       "lapgnn.one.refine": "lapgnn.predict.model", "lapgnn.predict.seed": "lapgnn.predict",
+       **SEEDED}
 TREES = {
     "solve": {"lapgnn.solve": None, "lapgnn.stage": "lapgnn.solve",
               "lapgnn.e2e": "lapgnn.solve", "lapgnn.readback": "lapgnn.solve", **E2E},
@@ -44,13 +47,17 @@ TREES = {
                  for s in ("features", "forward", "loss", "backward", "optimizer")},
               "lapgnn.dual.edge": "lapgnn.train.forward",
               "lapgnn.dual.attention": "lapgnn.train.forward"},
+    "one_train": {"lapgnn.train.step": None,
+                  **{f"lapgnn.train.{s}": "lapgnn.train.step" for s in
+                     ("normalize", "features", "forward", "loss", "backward", "optimizer")},
+                  "lapgnn.one.refine": "lapgnn.train.forward"},
     "stream": {"lapgnn.stream.pack": None, "lapgnn.stream.upload": None,
                "lapgnn.stream.solve": None, "lapgnn.stream.wait_upload": "lapgnn.stream.solve",
                "lapgnn.e2e": "lapgnn.stream.solve", "lapgnn.readback": "lapgnn.stream.solve",
                "lapgnn.stream.certify": None, "lapgnn.certify": "lapgnn.stream.certify",
                "lapgnn.stream.wait_certify": None, **E2E},
 }
-REQUESTS = {"solve": 1, "solve_certified": 1, "train": 1, "stream": 2}
+REQUESTS = {"solve": 1, "solve_certified": 1, "train": 1, "one_train": 1, "stream": 2}
 # spans that open more than once a request: the train fixture's model has two layers
 REPEATS = {"train": {"lapgnn.dual.edge": 2, "lapgnn.dual.attention": 2}}
 # spans that run on the stream's worker threads, which the profiler does not see
@@ -79,14 +86,27 @@ def train():
 
 
 @pytest.fixture(scope="module")
-def calls(pipe, train):
+def one_train():
+    """OneGNN's train step as ``train_progressive`` makes it: cost
+    refinement, normalised costs and gap, dropout on."""
+    model = build_one_gnn(16, 2, 0.1, 4, seed=3, device="cpu")
+    opt = make_optimizer(trainable_parameters(model, True), 1e-3, 1e-4, 1.0)
+    cost = torch.from_numpy(np.stack([_cost(f, 12, 7) for f in ("uniform", "sparse")]))
+    step = make_train_step(model, opt, True, normalize_gap=True, normalize_costs=True)
+    return step, cost, cost.amin(-1), torch.Generator().manual_seed(5)
+
+
+@pytest.fixture(scope="module")
+def calls(pipe, train, one_train):
     """path -> the call it makes."""
     step, cost, u, gen = train
+    one_step, one_cost, one_u, one_gen = one_train
     C, C2 = _cost("uniform", 32, 1), _cost("noisy_linear", 32, 2)
     return {
         "solve": lambda: pipe.solve(C),
         "solve_certified": lambda: pipe.solve(C2, certify=True),
         "train": lambda: step(cost, u, gen),
+        "one_train": lambda: one_step(one_cost, one_u, one_gen),
         "stream": lambda: pipe.solve_stream([C, C2], certify=True),
     }
 
@@ -212,14 +232,25 @@ def test_host_syncs_of_a_train_step(train):
     assert spans["lapgnn.train.features"].counts("host_syncs") == 6
 
 
+def test_host_syncs_of_a_one_gnn_train_step(one_train):
+    """The row features' positional code is the step's one copy."""
+    step, cost, u, gen = one_train
+    with tracing.record():
+        step(cost, u, gen)
+    spans = {s.name: s for s in tracing.take()}
+    assert spans["lapgnn.train.step"].counts("host_syncs") == 1
+    assert spans["lapgnn.train.features"].counts("host_syncs") == 1
+
+
 def test_host_syncs_of_a_hybrid_solve():
     params, meta, _ = load_checkpoint(CKPT)
     hybrid = WarmStartPipeline(build_model_from_meta(meta), params, mode="hybrid", device="cpu")
     with tracing.record():
         hybrid.solve(_cost("uniform", 32, 4))
     spans = {s.name: s for s in tracing.take()}
-    assert sorted(spans) == ["lapgnn.predict", "lapgnn.predict.features", "lapgnn.predict.model",
-                             "lapgnn.predict.seed", "lapgnn.solve", "lapgnn.stage"]
+    assert sorted(spans) == ["lapgnn.one.refine", "lapgnn.predict", "lapgnn.predict.features",
+                             "lapgnn.predict.model", "lapgnn.predict.seed", "lapgnn.solve",
+                             "lapgnn.stage"]
     assert spans["lapgnn.predict"].parent == spans["lapgnn.solve"].id
     predict = spans["lapgnn.predict"].counts("host_syncs")
     # the upload and the one (u, v) copy
@@ -511,6 +542,44 @@ def test_host_syncs_equal_warn_mode_on_the_card(cuda, path):
         assert [row for row in rows if row[1] != row[2]] == [], (rows, warned)
         assert [count for name, count, _ in rows if name == root] == [len(warned)], (rows, warned)
         assert warned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["off", "f32"])
+def test_curriculum_step_syncs_equal_warn_mode_on_the_card(cuda, cache, monkeypatch):
+    """A call of ``progressive.BatchStepper`` (the fetch, OneGNN's train step,
+    the readback) at n = 64 with the cache and readback gates lowered to it:
+    each span's ``host_syncs`` rise is the number of syncs warn mode reports
+    while it is open, and the counter's rise over the call, which its root
+    span ``lapgnn.train.call`` reads, is every sync of the call (the fetch's
+    copies, the row features' positional code, the readback)."""
+    monkeypatch.setattr(progressive, "DEVICE_CACHE_MIN_N", 64)
+    monkeypatch.setattr(progressive, "SYNC_MIN_N", 64)
+    model = build_one_gnn(16, 2, 0.1, 4, seed=3, device=cuda)
+    opt = make_optimizer(trainable_parameters(model, True), 1e-3, 1e-4, 1.0)
+    step = make_train_step(model, opt, True, normalize_gap=True, normalize_costs=True)
+    costs = [_cost(f, 64, k) for k, f in enumerate(("uniform", "sparse", "tie", "uniform"))]
+    spec = progressive.DatasetSpec("n64", 64, [{"cost": C, "u": C.min(1)} for C in costs])
+    stepper = progressive.BatchStepper(step, cuda, [spec], cache)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    calls = [lambda: stepper(spec, np.array([3, 1]), gen)] * 3
+    rises = []
+
+    def counted(call):
+        before = tracing.counters()["host_syncs"]
+        call()
+        rises.append(tracing.counters()["host_syncs"] - before)
+
+    for call in calls:  # builds the greedy kernel
+        call()
+    by_call = _syncs_by_call([lambda call=call: counted(call) for call in calls])
+    assert rises == [(1 if cache == "f32" else 2) + 2] * 3
+    for (spans, warned), rise in zip(by_call, rises):
+        rows = [(s.name, s.counts("host_syncs"), sum(s.id in ids for ids, _ in warned))
+                for s in spans]
+        assert [row for row in rows if row[1] != row[2]] == [], (rows, warned)
+        assert rise == len(warned), (rows, warned)
+        assert [count for name, count, _ in rows if name == "lapgnn.train.call"] == [rise]
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch / CUDA port (``lapgnn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0]
-                          [--phases build,compare,device,times,stream,train,eval,dual_train,front_ends,parallel,parallel_train,dual_edge,graph_features]
+                          [--phases build,compare,device,times,stream,train,eval,dual_train,front_ends,parallel,parallel_train,dual_edge,graph_features,predict_graph]
 
 ``--phases`` runs a subset (for a first look at a changed kernel,
 ``build,device`` after a change to the device solver or its kernels S1-S3,
@@ -13,7 +13,8 @@ after one to the solver front ends or the benchmark CLIs, ``build,parallel``
 after one to the parallel package's serving, ``build,parallel_train`` after
 one to its training, ``build,dual_edge`` after one to the DualGNN edge
 kernel, ``build,graph_features`` after one to DualGNN's graph-feature
-kernels) and then prints no ``ok`` line; with no arguments every phase runs.
+kernels, ``build,predict_graph`` after one to the predict's CUDA graphs)
+and then prints no ``ok`` line; with no arguments every phase runs.
 
 Phases; any failure exits non-zero without the final ``ok`` line:
   1. Device and build: the card's name and power limit, then every kernel
@@ -258,6 +259,22 @@ Phases; any failure exits non-zero without the final ``ok`` line:
      2048) and (4, 512), L2 flushed, queued behind the spin kernel, beside
      the bound (``_graph_features_bound_ms``: C read once; with the sorts'
      compare-exchanges and the design's own traffic) and the plain version.
+ 17. Predict graph: cell A's predict (``artifacts/one_gnn_default``,
+     normalised costs) and cell D's (``artifacts/dual_gnn_r5``, whose
+     predict runs eagerly: its ``predict.graphs`` called directly) at
+     (1, 2048) served eagerly and from the CUDA graphs
+     ``pipeline.predict_duals_fn`` captures: the replay bit for bit against
+     the eager chain on the four families; the capture's ``launch.*`` rises
+     (which each replay adds again) those of an eager call, and no host
+     sync; the memory the capture reserved (its graphs' pool); then each
+     way's time on the host clock (each call synchronised), its CUDA-event
+     time queued back to back, and its host enqueue time, in turns (eager,
+     replay, replay, eager); the replay's spans' CUDA-event times, and A's
+     rank-1 fit alone, captured and replayed.  Then A's predict, as served,
+     at every (1, n) that the eval and front-ends phases drive
+     (``PREDICT_GRAPH_SHAPES``; there its graphs are held eager, so that
+     their kernel wrappers see every call): replay against eager, bit for
+     bit, on the four families.
 
 Output: a JSON line per phase, then the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -1957,6 +1974,15 @@ def _wrapped(owner, name, make):
             delattr(owner, name)
 
 
+def _eager_predicts():
+    """``_wrapped`` for the predict's CUDA graphs: inside the block every
+    ``graphs.GraphedCall`` runs eagerly, so that the kernel wrappers a phase
+    replaces see every call (a replay runs no Python)."""
+    from lapgnn_tpu_torch.graphs import GraphedCall
+
+    return _wrapped(GraphedCall, "__call__", lambda real: GraphedCall.eager)
+
+
 def _capture(calls, clone=False):
     """For ``_wrapped``: keep each call's arguments and result in ``calls``
     (a copy of the result with ``clone``, safe from later in-place use)."""
@@ -2282,7 +2308,8 @@ def phase_eval(torch, seed, records=None):
     (``artifacts/dual_gnn_r5`` at its full width, ``DualGNNPredictor``,
     seed mode 'auto') on ``EVAL_PER_FAMILY`` labelled instances of each
     family at n = ``EVAL_N``, each kernel's every call there held against
-    its plain version on the same arguments; the timing branch on 2 uniform
+    its plain version on the same arguments (the predicts run eagerly
+    there, ``_eager_predicts``, so every call is seen); the timing branch on 2 uniform
     instances; the card against the CPU on one instance; then
     ``graph_features`` and the forward timed at ``EVAL_TIMED_N`` beside the
     forward's bound.  ``records`` are the labelled instances in
@@ -2335,7 +2362,8 @@ def phase_eval(torch, seed, records=None):
                             "sinkhorn_ladder")}
     since = _launches()
     result, ms_per_instance = {}, {}
-    with _wrapped(cuda_ops, "sinkhorn_ladder", _capture_pair(seen["sinkhorn_ladder"])), \
+    with _eager_predicts(), \
+            _wrapped(cuda_ops, "sinkhorn_ladder", _capture_pair(seen["sinkhorn_ladder"])), \
             _wrapped(cuda_features, "col_min", _capture(seen["col_min"], clone=True)), \
             _wrapped(dual_mod, "min_trick", _capture(seen["min_trick"], clone=True)), \
             _wrapped(features_mod, "row_features_stats",
@@ -2931,7 +2959,8 @@ def phase_front_ends(torch, seed):
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         since = _launches()
-        with _wrapped(cuda_features, "col_min", _capture(seen["col_min"], clone=True)), \
+        with _eager_predicts(), \
+                _wrapped(cuda_features, "col_min", _capture(seen["col_min"], clone=True)), \
                 _wrapped(dual_mod, "min_trick", _capture(seen["min_trick"], clone=True)), \
                 _wrapped(features_mod, "row_features_stats",
                          _capture(seen["row_features_stats"], clone=True)), \
@@ -4629,6 +4658,157 @@ def phase_graph_features(torch, seed):
     return res
 
 
+PREDICT_GRAPH_REPS = 30
+# the sizes at which the eval and front-ends phases call A's predict
+PREDICT_GRAPH_SHAPES = sorted({EVAL_N, *EVAL_TIMED_N, FRONT_N, FRONT_BY_TYPE_N,
+                               *FRONT_COMPREHENSIVE_N, FRONT_LARGE_N, FRONT_REGRESSION_N})
+
+
+def phase_predict_graph(torch, seed):
+    """Cell A's and cell D's predict, eager against replayed CUDA graphs,
+    and A's at the eval and front-ends phases' sizes (see the module's
+    phase 17)."""
+    import numpy as np
+
+    from lapgnn_tpu_torch import tracing
+    from lapgnn_tpu_torch.data.generators import FAMILIES
+    from lapgnn_tpu_torch.pipeline import WarmStartPipeline
+    from lapgnn_tpu_torch.train import build_model_from_meta, load_checkpoint
+
+    costs = {f: torch.from_numpy(C).cuda()[None]
+             for f, C in _e2e_costs(seed + 2500).items()}
+    C = costs["uniform"]
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        before = tracing.counters()
+        out = fn()
+        torch.cuda.synchronize()
+        after = tracing.counters()
+        return out, {k: after[k] - before.get(k, 0) for k in after
+                     if after[k] != before.get(k, 0)}
+
+    def timed(fn):
+        host = _ms_host(torch, fn, PREDICT_GRAPH_REPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(PREDICT_GRAPH_REPS):
+            fn()
+        end.record()
+        enqueue = (time.perf_counter() - t0) * 1e3 / PREDICT_GRAPH_REPS
+        torch.cuda.synchronize()
+        return {"host_ms": host, "events_ms": start.elapsed_time(end) / PREDICT_GRAPH_REPS,
+                "enqueue_ms": enqueue}
+
+    def launches(rise):
+        return {k: v for k, v in rise.items() if k.startswith("launch.")}
+
+    res = {}
+    for cell, ckpt, normalize in (("A", CHECKPOINT, True), ("D", DUAL_CHECKPOINT, False)):
+        params, meta, _ = load_checkpoint(ckpt)
+        pipe = WarmStartPipeline(build_model_from_meta(meta), params, normalize_costs=normalize)
+        predict = pipe._predict
+
+        @torch.inference_mode()
+        def eager(X=None):
+            return predict.graphs.eager(C if X is None else X)
+
+        if cell == "A":
+            served = predict
+        else:  # D's predict runs eagerly: its graphs, called as A's predict calls them
+            @torch.inference_mode()
+            def served(X):
+                with tracing.span("predict", X.device):
+                    return predict.graphs(X)
+
+        _, first = counted(lambda: served(C))  # eager: builds the kernels
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        _, captured = counted(lambda: served(C))
+        pool_bytes = torch.cuda.memory_reserved() - reserved
+        (_, replayed), (_, eagerly) = counted(lambda: served(C)), counted(eager)
+        if replayed.get("predict_graph.replay") != 1:
+            raise AssertionError(f"cell {cell} predict: not replayed: counters {replayed}")
+        # what the capture counted is what each replay adds: it must be an
+        # eager call's launches
+        for what, rise in (("capture", captured), ("eager again", eagerly)):
+            if launches(rise) != launches(first):
+                raise AssertionError(f"cell {cell} predict, {what}: launches {launches(rise)} "
+                                     f"against the first eager call's {launches(first)}")
+        for what, rise in (("capture", captured), ("replay", replayed), ("eager again", eagerly)):
+            if rise.get("host_syncs", 0) != 0:
+                raise AssertionError(f"cell {cell} predict, {what}: host syncs {rise}")
+        for f, X in costs.items():
+            got, want = served(X), eager(X)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"cell {cell} predict on {f}: the replay differs from "
+                                     "the eager chain")
+        recording = predict.graphs._keys[predict.graphs.keys()[-1]].recording
+        times = {}
+        for way, fn in (("eager", eager), ("replay", lambda: served(C)),
+                        ("replay_2", lambda: served(C)), ("eager_2", eager)):
+            times[way] = timed(fn)
+        # the replay's stages on the card: its spans' CUDA events, the median of five
+        tracing.take()  # what earlier phases left recorded
+        stages = {}
+        for _ in range(5):
+            with tracing.record():
+                served(C)
+            for sp in tracing.take():
+                stages.setdefault(sp.name, []).append(sp.device_ms)
+        stages = {k: statistics.median(v) for k, v in sorted(stages.items())}
+        if cell == "A":  # what the seed policy's rank-1 fit takes on the card, alone
+            from lapgnn_tpu_torch.graphs import capture
+            from lapgnn_tpu_torch.ops.rank1 import rank1_duals
+
+            with torch.inference_mode():
+                rank1 = capture(lambda: rank1_duals(C), C.device)
+                stages["rank1_duals"] = timed(rank1.replay)["events_ms"]
+            del rank1
+        res[cell] = {"pool_reserved_bytes": pool_bytes, "graphs": recording.graphs,
+                     "served": "replay" if cell == "A" else "eager (graphs called directly)",
+                     "replay_stages_device_ms": stages,
+                     "launches": launches(first),
+                     "times": times,
+                     "host_ms_saved": (times["eager"]["host_ms"] + times["eager_2"]["host_ms"]
+                                       - times["replay"]["host_ms"]
+                                       - times["replay_2"]["host_ms"]) / 2}
+        del pipe, predict, recording, served
+        torch.cuda.empty_cache()
+
+    # A's predict, as served, at the sizes the eval and front-ends phases
+    # drive with its graphs held eager: replay against eager on the four families
+    params, meta, _ = load_checkpoint(CHECKPOINT)
+    predict = WarmStartPipeline(build_model_from_meta(meta), params)._predict
+    rng = np.random.default_rng(seed + 2501)
+    shapes = {}
+    for n in PREDICT_GRAPH_SHAPES:
+        fams = {f: torch.from_numpy(FAMILIES[f](n, rng).astype(np.float32)).cuda()[None]
+                for f in FAMILIES_E2E}
+        predict(fams["uniform"])  # eager
+        predict(fams["uniform"])  # captures
+        before = tracing.counters()["predict_graph.replay"]
+        for f, X in fams.items():
+            got = predict(X)
+            with torch.inference_mode():
+                want = predict.graphs.eager(X)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"A's predict at (1, {n}) on {f}: the replay differs "
+                                     "from the eager chain")
+        shapes[n] = tracing.counters()["predict_graph.replay"] - before
+        if shapes[n] != len(fams):
+            raise AssertionError(f"A's predict at (1, {n}): {shapes[n]} replays of {len(fams)}")
+        del fams
+    res["A_bit_equal_replays_by_n"] = shapes
+    del predict
+    torch.cuda.empty_cache()
+    _emit({"phase": "predict_graph", **res})
+    return res
+
+
 def phase_times(torch, seed):
     from lapgnn_tpu_torch.ops.cuda import col_min, min_trick, row_features_stats, two_min
     from lapgnn_tpu_torch.ops.cuda.colmin import col_min_plain, min_trick_plain
@@ -4795,8 +4975,7 @@ def main() -> int:
     ap.add_argument("--phases", default="",
                     help="comma-separated subset of build,compare,device,times,stream,train,"
                          "eval,dual_train,front_ends,parallel,parallel_train,dual_edge,"
-                         "graph_features "
-                         "(no ok line)")
+                         "graph_features,predict_graph (no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -4830,7 +5009,8 @@ def main() -> int:
                       "parallel": lambda: phase_parallel(torch, args.seed),
                       "parallel_train": lambda: phase_parallel_train(torch, args.seed),
                       "dual_edge": lambda: phase_dual_edge(torch, args.seed),
-                      "graph_features": lambda: phase_graph_features(torch, args.seed)}
+                      "graph_features": lambda: phase_graph_features(torch, args.seed),
+                      "predict_graph": lambda: phase_predict_graph(torch, args.seed)}
             for phase in args.phases.split(","):
                 subset[phase]()
             print(f"chip_smoke: partial run ({args.phases}), no ok line")
@@ -4862,6 +5042,7 @@ def main() -> int:
         times = phase_times(torch, args.seed)
         dual_edge = phase_dual_edge(torch, args.seed)
         graph_feats = phase_graph_features(torch, args.seed)
+        phase_predict_graph(torch, args.seed)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

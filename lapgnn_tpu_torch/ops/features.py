@@ -23,7 +23,6 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import tracing
 from .cuda.features import row_features_max_m, row_features_stats
 from .cuda.graph_features import graph_features as _graph_features_kernel
 from .cuda.graph_features import MAX_BATCH, graph_features_max_len
@@ -43,7 +42,7 @@ __all__ = [
     "GraphFeatures",
 ]
 
-POS_FREQS = (1, 2, 4, 8)
+POS_FREQS = (1, 2, 4, 8)  # doubling from 1: positional_encodings makes them so
 TAU = 1e-3
 EPS = 1e-9
 ROW_FEATURE_DIM = 13 + 2 * len(POS_FREQS)  # 21
@@ -52,10 +51,13 @@ EDGE_FEATURE_DIM = 10
 
 
 def positional_encodings(n: int, device=None, dtype=torch.float32) -> torch.Tensor:
-    """sin/cos of 2*pi*pos*f/max(1, n-1) for f in (1, 2, 4, 8) -> (n, 8)."""
+    """sin/cos of 2*pi*pos*f/max(1, n-1) for f in (1, 2, 4, 8) -> (n, 8).
+    The frequencies double from 1, so they are made where they are used,
+    as integer powers of two: no copy from the host."""
     pos = torch.arange(n, dtype=torch.float32, device=device).reshape(n, 1)
     scale = float(max(1, n - 1))
-    freqs = tracing.to_device(POS_FREQS, device, torch.float32).reshape(1, -1)
+    freqs = torch.pow(2, torch.arange(len(POS_FREQS), device=device)).to(torch.float32)
+    freqs = freqs.reshape(1, -1)
     angle = 2.0 * math.pi * pos * freqs / scale
     enc = torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1)
     return enc.reshape(n, 2 * len(POS_FREQS)).to(dtype)
@@ -230,8 +232,9 @@ def _normalized_ranks(C: torch.Tensor, dim: int) -> torch.Tensor:
 def _exact_div(x: torch.Tensor, d: int) -> torch.Tensor:
     """x / d, rounded once.  With a Python number for d, PyTorch multiplies
     by its reciprocal on CUDA (one ulp apart from the division for most d);
-    a tensor divisor keeps the division, as on the CPU and in JAX."""
-    return x / tracing.to_device(float(d), x.device, x.dtype)
+    a tensor divisor keeps the division, as on the CPU and in JAX.  The
+    divisor is filled in on x's device, with no copy from the host."""
+    return x / torch.full((), float(d), dtype=x.dtype, device=x.device)
 
 
 def _axis_stats(C: torch.Tensor, dim: int):

@@ -10,6 +10,7 @@ unique-argmin collision veto.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -60,18 +61,23 @@ def _quantiles(a: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
     input's dtype.  The position and the interpolation run in float64, as
     ``jnp.quantile`` runs them on a float64 ``q`` (JAX with x64 on, as its
     tests run); with x64 off JAX computes them in float32, which can round
-    the result one ulp apart."""
+    the result one ulp apart.  The positions and weights depend on the
+    shape alone, so the host computes them, in the same float64 steps, and
+    the device only gathers and interpolates: nothing is copied to it."""
     m = a.shape[-1]
     a = torch.where(torch.isnan(a).any(-1, keepdim=True), torch.nan, a)
     srt = torch.sort(a, dim=-1).values
-    pos = tracing.to_device(qs, a.device, torch.float64) * float(m - 1)
-    lo_i = torch.floor(pos).clamp(0, m - 1).long()
-    hi_i = torch.ceil(pos).clamp(0, m - 1).long()
-    hi_w = (pos - torch.floor(pos))[:, None]
-    lo_w = 1.0 - hi_w
-    lo = srt[:, lo_i].T.to(torch.float64)
-    hi = srt[:, hi_i].T.to(torch.float64)
-    return (lo * lo_w + hi * hi_w).to(a.dtype)
+    out = []
+    for q in qs:
+        pos = float(q) * float(m - 1)
+        lo_i = min(max(math.floor(pos), 0), m - 1)
+        hi_i = min(max(math.ceil(pos), 0), m - 1)
+        hi_w = pos - math.floor(pos)
+        lo_w = 1.0 - hi_w
+        lo = srt[:, lo_i].to(torch.float64)
+        hi = srt[:, hi_i].to(torch.float64)
+        out.append(lo * lo_w + hi * hi_w)
+    return torch.stack(out).to(a.dtype)
 
 
 def sinkhorn_refine(

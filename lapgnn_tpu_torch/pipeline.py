@@ -40,6 +40,7 @@ import torch
 
 from . import tracing
 from .device import resolve_device
+from .graphs import GraphedCall
 from .models import DualGNN, OneGNN
 from .ops.dual import fast_min_trick, robust_normalize
 from .ops.features import fast_row_features, graph_features
@@ -213,16 +214,27 @@ def predict_duals_fn(
     (``ops.features.graph_features``, which scales them itself, so
     ``normalize_costs`` raises) and runs without dropout; its u goes through
     the same seed policy, and its v_hint is not served: the min-trick gives
-    v, as the original system's evaluation does (``gnn/eval.py:119``)."""
+    v, as the original system's evaluation does (``gnn/eval.py:119``).
+
+    A OneGNN's predict of a CUDA float32 cost is served from CUDA graphs
+    (``graphs.GraphedCall``, its counters ``predict_graph.replay`` /
+    ``.capture`` / ``.eager``), captured on the second call of each
+    (B, n, m) and replayed from the third, with the same spans and launch
+    counts as the eager chain and bit-equal results; the first call of a
+    shape, the CPU, other dtypes and ``seed_mode='rank1'`` run eagerly.  A
+    DualGNN's predict runs eagerly too: its forward is device-bound (about
+    40 ms at n = 2048 on an H100, against 1 ms of launches), and
+    ``lapbench``'s DualGNN serving cell reads each call's u from the
+    model's ``forward``, which a replay does not call.  ``predict.graphs``
+    is the ``GraphedCall`` (a DualGNN's too, called directly).  The
+    returned (u, v) are the caller's own."""
     if seed_mode not in ("gnn", "rank1", "auto"):
         raise ValueError("seed_mode must be 'gnn', 'rank1', or 'auto'")
     dual = isinstance(model, DualGNN)
     if dual and normalize_costs:
         raise ValueError("a DualGNN scales the raw costs itself: pass normalize_costs=False")
 
-    @torch.inference_mode()
-    @tracing.spanned("predict", lambda cost: cost.device)
-    def predict(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def run(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         dev = cost.device
         if seed_mode == "rank1":
             with tracing.span("predict.seed", dev):
@@ -250,6 +262,17 @@ def predict_duals_fn(
                 return auto_select_seed(cost, u)
             return u, fast_min_trick(cost, u)
 
+    graphed = GraphedCall(run, "predict_graph")
+    replays = seed_mode != "rank1" and not dual
+
+    @torch.inference_mode()
+    @tracing.spanned("predict", lambda cost: cost.device)
+    def predict(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if replays and cost.device.type == "cuda" and cost.dtype == torch.float32:
+            return graphed(cost)
+        return graphed.eager(cost)
+
+    predict.graphs = graphed
     return predict
 
 

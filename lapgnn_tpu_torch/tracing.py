@@ -32,6 +32,12 @@ context and ``spanned`` calls the function alone: no range, no event, no
 allocation.  Closed spans stay in memory, the newest ``MAX_SPANS`` of them,
 until ``take()`` drains them (``recorded()`` reads them in place).
 
+While a CUDA graph is captured on a thread (``cutting``, which
+``graphs.capture`` uses), a span opened there records nothing: it tells the
+capture where it opens and closes, and the capture cuts its graph there, so
+that each replay opens the same spans around the same work; and the
+thread's counts are held for the capture, which each replay adds.
+
 Counters are integer adds that always count.  ``host_syncs`` counts each
 point where the host waits on the device; the program makes each such copy
 through ``to_device``, ``to_host`` or ``item``, which copy and count in one
@@ -58,8 +64,8 @@ from typing import Callable, Deque, Dict, Iterator, List, Optional
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["MAX_SPANS", "Span", "count", "counters", "discard", "enabled", "item", "mark",
-           "new_request", "record", "recorded", "span", "spanned", "take", "to_device",
+__all__ = ["MAX_SPANS", "Span", "count", "counters", "cutting", "discard", "enabled", "item",
+           "mark", "new_request", "record", "recorded", "span", "spanned", "take", "to_device",
            "to_host"]
 
 PREFIX = "lapgnn."
@@ -98,8 +104,29 @@ def record() -> Iterator[None]:
         _recording -= 1
 
 
+@contextmanager
+def cutting(cut: Callable[[str, str, Optional[torch.device]], None],
+            counts: Dict[str, int]) -> Iterator[None]:
+    """Inside the block, on this thread, each span records nothing and calls
+    ``cut("open", name, device)`` where it opens and ``cut("close", name,
+    device)`` where it closes (a CUDA graph's capture cuts there), and each
+    count adds to ``counts`` instead of the counters (what a capture counts
+    has not run yet)."""
+    outer = getattr(_local, "cut", None), getattr(_local, "held", None)
+    _local.cut, _local.held = cut, counts
+    try:
+        yield
+    finally:
+        _local.cut, _local.held = outer
+
+
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``."""
+    """Add ``n`` to the counter ``name`` (to the held counts while
+    ``cutting``)."""
+    held = getattr(_local, "held", None)
+    if held is not None:
+        held[name] = held.get(name, 0) + n
+        return
     with _counter_lock:
         _counters[name] = _counters.get(name, 0) + n
 
@@ -282,13 +309,34 @@ class _Off:
 _OFF = _Off()
 
 
+class _Cut:
+    """A span while ``cutting``: it calls the cut where it opens and closes."""
+
+    __slots__ = ("_cut", "_name", "_device")
+
+    def __init__(self, cut, name: str, device: Optional[torch.device]):
+        self._cut, self._name, self._device = cut, name, device
+
+    def __enter__(self) -> None:
+        self._cut("open", self._name, self._device)
+
+    def __exit__(self, *exc) -> bool:
+        if exc[0] is None:
+            self._cut("close", self._name, self._device)
+        return False
+
+
 def span(name: str, device: Optional[torch.device] = None, request: Optional[int] = None,
          into: Optional[List[Span]] = None):
     """A span named ``lapgnn.<name>`` around the block, recorded while the
     tracer records.  ``device``: where the block's work runs (CUDA events
     on a CUDA device); ``request``: its request id, for a root that belongs
     to a request opened elsewhere; ``into``: a list that takes the closed
-    span whether or not the tracer records (``SolveStats(timed=True)``)."""
+    span whether or not the tracer records (``SolveStats(timed=True)``).
+    While ``cutting``, the span only marks the cut."""
+    cut = getattr(_local, "cut", None)
+    if cut is not None:
+        return _Cut(cut, name, device)
     on = enabled()
     if into is None and not on:
         return _OFF
@@ -302,10 +350,10 @@ def spanned(name: str, device: Optional[Callable[..., torch.device]] = None):
     def wrap(fn):
         @functools.wraps(fn)
         def traced(*args, **kwargs):
-            if not enabled():
+            if not enabled() and getattr(_local, "cut", None) is None:
                 return fn(*args, **kwargs)
             where = device(*args, **kwargs) if device is not None else None
-            with Span(name, where, None, None, True):
+            with span(name, where):
                 return fn(*args, **kwargs)
 
         return traced

@@ -219,8 +219,8 @@ def test_the_seam_spans_and_host_syncs(cached, monkeypatch):
     """A call of the seam: the root ``lapgnn.train.call`` holds the fetch
     (``lapgnn.train.batch``), then the step's tree with the refinement inside
     the forward, then the readback; ``host_syncs`` counts the fetch's copies
-    (the index upload, or the two uploads), the row features' positional
-    code inside the step, and the readback, each inside the call."""
+    (the index upload, or the two uploads) and the readback, each inside the
+    call: the step copies nothing (its positional code is made in place)."""
     monkeypatch.setattr(tprog, "DEVICE_CACHE_MIN_N", N)
     monkeypatch.setattr(tprog, "SYNC_MIN_N", N)
     model, opt, _, costs, targets, _ = _setup(5)
@@ -236,11 +236,11 @@ def test_the_seam_spans_and_host_syncs(cached, monkeypatch):
     spans = tracing.take()
     assert isinstance(loss, float)
     fetch = 1 if cached else 2
-    assert tracing.counters()["host_syncs"] - before == fetch + 1 + 1
+    assert tracing.counters()["host_syncs"] - before == fetch + 1
     by_id = {s.id: s for s in spans}
     call = [s for s in spans if s.name == "lapgnn.train.call"]
     assert len(call) == 1 and call[0].parent is None
-    assert call[0].counts("host_syncs") == fetch + 1 + 1
+    assert call[0].counts("host_syncs") == fetch + 1
     tree = {"lapgnn.train.call": None, "lapgnn.train.batch": "lapgnn.train.call",
             **ONE_TRAIN, "lapgnn.train.step": "lapgnn.train.call"}
     assert sorted(s.name for s in spans) == sorted(tree)
@@ -250,4 +250,4 @@ def test_the_seam_spans_and_host_syncs(cached, monkeypatch):
     batch = next(s for s in spans if s.name == "lapgnn.train.batch")
     assert batch.counts("host_syncs") == fetch
     root = next(s for s in spans if s.name == "lapgnn.train.step")
-    assert root.counts("host_syncs") == 1  # the row features' positional code
+    assert root.counts("host_syncs") == 0
